@@ -1,0 +1,88 @@
+"""Fusion-aware PGD/FGSM — attacks that differentiate through the whole fusion
+pipeline (port of ``tpufusion/attacks/fusion_attack.py``, arithmetic mode and
+pixel objective):
+
+    adv inputs (N,S,S,3) -> pool -> e4e -> mean W+ -> StyleGAN2 synthesis
+    -> fused image -> pixel MSE
+
+The PGD loop perturbs all N inputs jointly under one L-inf ball.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from tpufusion_torch.attacks.pgd import PGDConfig, make_pgd
+from tpufusion_torch.pipeline import FusionPipeline, latents_with
+
+_SPATIAL = ("spatial fusion is not ported yet: ROADMAP.md queue A, item "
+            "'Spatial fusion' (fusion_hierarchy, fusion/spatial.py and the "
+            "spatial mode of attacks/fusion_attack.py)")
+_VGG = ("the 'vgg' objective is not ported yet: ROADMAP.md queue A, item "
+        "'VGG16 and the white-box attack'")
+
+
+def make_fused_image_fn(pipeline: FusionPipeline, mode: str = "arithmetic"):
+    """Differentiable ``fused(inputs) -> (1, S, S, 3)`` through the full
+    pipeline. Only ``mode='arithmetic'`` (mean W+) is ported."""
+    if mode == "spatial":
+        raise NotImplementedError(_SPATIAL)
+    if mode != "arithmetic":
+        raise ValueError(f"mode must be 'arithmetic' or 'spatial', got {mode!r}")
+    gen = pipeline.generator
+
+    def fused(inputs):
+        codes = latents_with(pipeline.encoder, pipeline.latent_avg, pipeline.pool_factor,
+                             pipeline.is_cars, inputs)
+        avg = codes.mean(dim=0, keepdim=True)
+        return gen(avg, input_is_latent=True).image
+
+    return fused
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionAttackConfig:
+    mode: str = "arithmetic"  # 'spatial' is not ported yet
+    objective: str = "pixel"  # 'vgg' is not ported yet
+    targeted: bool = True     # pull the fused image toward `target`; False: away
+    pgd: PGDConfig = PGDConfig(eps=8 / 255 * 2, alpha=0.01 * 2, steps=40)
+
+
+def make_fusion_loss(pipeline: FusionPipeline, config: FusionAttackConfig):
+    """``loss(adv_inputs, target) -> scalar``: the attack's objective."""
+    if config.objective == "vgg":
+        raise NotImplementedError(_VGG)
+    if config.objective != "pixel":
+        raise ValueError(f"objective must be 'pixel' or 'vgg', got {config.objective!r}")
+    fused_fn = make_fused_image_fn(pipeline, config.mode)
+
+    def loss_fn(adv, target):
+        d = fused_fn(adv).float() - target.float()
+        return (d * d).mean()
+
+    return loss_fn
+
+
+def make_fusion_attack(pipeline: FusionPipeline, config: FusionAttackConfig):
+    """Build ``attack(inputs, target_fused, generator) -> (adv_inputs, trace)``;
+    ``generator`` (a ``torch.Generator``) draws the random start.
+
+    ``inputs``: the (N, S, S, 3) fusion batch; ``target_fused``: a (1, S, S, 3)
+    image the fused output should approach (targeted) or flee (untargeted).
+    """
+    loss_fn = make_fusion_loss(pipeline, config)
+    pgd = make_pgd(loss_fn, dataclasses.replace(config.pgd, targeted=config.targeted))
+
+    def attack(inputs, target_fused, generator=None):
+        return pgd(inputs, generator, target_fused)
+
+    return attack
+
+
+def fgsm_on_fusion(pipeline: FusionPipeline, eps: float = 8 / 255 * 2,
+                   mode: str = "arithmetic", objective: str = "pixel",
+                   targeted: bool = True):
+    """1-step FGSM on the fused output (BASELINE config 1)."""
+    cfg = FusionAttackConfig(mode=mode, objective=objective, targeted=targeted,
+                             pgd=PGDConfig(eps=eps, alpha=eps, steps=1, random_start=False))
+    return make_fusion_attack(pipeline, cfg)
