@@ -6,7 +6,9 @@ NVIDIA GPU (marker ``cuda``) and skip without one; run them on the card with
 
 ``chip_smoke.py`` holds the same kernels at the main path's full shapes.
 Tolerances: float32 (TF32 off) 1e-4 of max(1, max|plain|); bfloat16 3e-2;
-pgd_update bit-exact in both (it repeats the plain float32 arithmetic).
+pgd_update bit-exact in both (it repeats the plain float32 arithmetic);
+fused_adam bit-exact in float32 (it rounds after every operation, as its
+plain version does).
 """
 
 import math
@@ -14,6 +16,7 @@ import math
 import pytest
 import torch
 
+from tpufusion_torch.ops import adam_update as au
 from tpufusion_torch.ops import conv3x3 as c3
 from tpufusion_torch.ops import pgd_update as pu
 from tpufusion_torch.ops import styled_conv as sc
@@ -86,3 +89,33 @@ def test_pgd_update_kernel(cuda, dtype, numel_shape):
     flat = [t.reshape(-1)[1:] for t in (adv, g, img)]
     _close(pu.pgd_update_kernel(*flat, *args[3:]), pu.pgd_update_plain(*flat, *args[3:]),
            dtype, tol=0.0)
+
+
+@pytest.mark.parametrize("count", [1, 50])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 3), (3, 37, 53, 3)])
+def test_fused_adam_kernel(cuda, shape, count):
+    rn = lambda: torch.randn(shape, generator=cuda, device="cuda")  # noqa: E731
+    x, g, mu, nu = rn(), rn(), rn() * 0.1, rn().square() * 0.01
+    bc1, bc2 = au.bias_corrections(count)
+    want = au.adam_update_plain(x.clone(), g, mu.clone(), nu.clone(), 1e-2, bc1, bc2)
+    got = (x.clone(), g, mu.clone(), nu.clone())
+    au.adam_update_kernel(*got, 1e-2, bc1, bc2)
+    for a, b in zip((got[0], got[2], got[3]), want):
+        _close(a, b, torch.float32, tol=0.0)
+    # views 4 bytes off 16-byte alignment take the scalar path
+    off = [torch.empty(t.numel() + 1, device="cuda")[1:].copy_(t.reshape(-1))
+           for t in (x, g, mu, nu)]
+    want = au.adam_update_plain(*[t.clone() for t in off], 1e-2, bc1, bc2)
+    au.adam_update_kernel(*off, 1e-2, bc1, bc2)
+    for a, b in zip((off[0], off[2], off[3]), want):
+        _close(a, b, torch.float32, tol=0.0)
+
+
+def test_fused_adam_counts_launches(cuda):
+    x = torch.randn(1, 8, 8, 3, device="cuda")
+    st = au.adam_init(x)
+    before = au.fused_adam.launches
+    x2, st = au.fused_adam(x, torch.randn_like(x), st, 1e-2)
+    assert x2 is x and st["count"] == 1 and au.fused_adam.launches == before + 1
+    with pytest.raises(TypeError):
+        au.fused_adam(x.bfloat16(), x.bfloat16(), au.adam_init(x.bfloat16()), 1e-2)

@@ -8,7 +8,9 @@ create_test_pipeline``) whose weights are carried into the port.
   matches (atol = rtol = 2e-4), the input gradient matches to rtol 1e-3 of its
   largest entry, and ``adv`` matches wherever |grad| > 1e-6 (``sign`` of float
   noise diverges elsewhere);
-- 5 port steps descend the loss and stay in the eps-ball; FGSM stays in it.
+- 5 port steps descend the loss and stay in the eps-ball; FGSM stays in it;
+- the ``'vgg'`` objective (VGG16 perceptual distance of the pooled fused
+  image and target): loss and input gradient match JAX's.
 CPU, float32.
 """
 
@@ -23,6 +25,8 @@ import torch
 from tpufusion.attacks.fusion_attack import make_fused_image_fn as j_fused_fn
 from tpufusion.attacks.pgd import PGDConfig as JPGDConfig
 from tpufusion.attacks.pgd import make_pgd as j_make_pgd
+from tpufusion.core.imaging import avg_pool as j_avg_pool
+from tpufusion.models.vgg16 import perceptual_distance as j_perceptual_distance
 from tpufusion.pipeline import create_test_pipeline
 from tpufusion_torch.attacks.pgd import make_pgd
 from tpufusion_torch.attacks.fusion_attack import (
@@ -36,6 +40,7 @@ from tpufusion_torch.io.convert import (
     encoder_state_from_jax,
     generator_state_from_jax,
     state_dict_to_torch,
+    vgg_state_from_jax,
 )
 from tpufusion_torch.pipeline import FusionPipeline
 
@@ -54,6 +59,8 @@ def pipelines():
         jax.tree.map(np.asarray, jp.drawer.gen_vars), 32, 1)))
     tp.encoder.load_state_dict(state_dict_to_torch(encoder_state_from_jax(
         jax.tree.map(np.asarray, jp.enc_vars), (1, 1, 1, 1))))
+    tp.vgg.load_state_dict(state_dict_to_torch(vgg_state_from_jax(
+        jax.tree.map(np.asarray, jp.vgg_vars))))
     tp.latent_avg = torch.from_numpy(np.array(jp.latent_avg))
     tp.drawer.mean_latent = torch.from_numpy(np.array(jp.drawer.mean_latent))
     params = dict(enc=jp.enc_vars, gen=jp.drawer.gen_vars, blend=jp.drawer.blend_params,
@@ -133,14 +140,37 @@ def test_fgsm_stays_in_ball(pipelines):
     assert not torch.equal(adv, xt)
 
 
+def test_vgg_objective_matches_jax(pipelines):
+    jp, tp, params, x, target, start = pipelines
+    fused_j, vgg_j, factor = j_fused_fn(jp, "arithmetic"), jp.vgg_fn(), jp.pool_factor
+
+    def j_loss(adv, params_, tgt):  # the JAX attack's 'vgg' objective
+        fa = vgg_j(params_["vgg"], j_avg_pool(fused_j(params_, adv), factor))
+        fb = vgg_j(params_["vgg"], j_avg_pool(tgt, factor))
+        return j_perceptual_distance(fa, fb)
+
+    loss_j, g_j = jax.jit(jax.value_and_grad(j_loss))(jnp.asarray(start), params,
+                                                      jnp.asarray(target))
+    g_j = np.asarray(g_j)
+    loss_fn = make_fusion_loss(tp, FusionAttackConfig(objective="vgg"))
+    s_req = torch.from_numpy(start).requires_grad_(True)
+    loss = loss_fn(s_req, torch.from_numpy(target))
+    (g,) = torch.autograd.grad(loss, s_req)
+    np.testing.assert_allclose(loss.detach().numpy(), np.asarray(loss_j), **TOL)
+    np.testing.assert_allclose(g.numpy(), g_j, rtol=0, atol=1e-3 * np.abs(g_j).max())
+
+
 def test_unported_modes_name_their_roadmap_item(pipelines):
     _, tp, _, _, _, _ = pipelines
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_fused_image_fn(tp, "spatial")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fusion_attack(tp, FusionAttackConfig(objective="vgg"))
+    # the 'vgg' objective is ported: it builds and runs
+    attack = make_fusion_attack(tp, FusionAttackConfig(objective="vgg"))
+    assert callable(attack)
     with pytest.raises(ValueError):
         make_fused_image_fn(tp, "blend")
+    with pytest.raises(ValueError):
+        make_fusion_loss(tp, FusionAttackConfig(objective="lpips"))
 
 
 @pytest.mark.parametrize("is_cars", [False, True])

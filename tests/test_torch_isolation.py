@@ -14,11 +14,13 @@ import pkgutil
 import re
 import subprocess
 import sys
+import types
 
 import pytest
 import torch
 
 from tpufusion_torch.ops import _lib
+from tpufusion_torch.ops import adam_update as au
 from tpufusion_torch.ops import conv3x3 as c3
 from tpufusion_torch.ops import pgd_update as pu
 from tpufusion_torch.ops import styled_conv as sc
@@ -63,6 +65,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from tpufusion_torch.fusion.drawer import FusionDrawer
     from tpufusion_torch.models.e4e import Encoder4Editing
     from tpufusion_torch.models.stylegan2 import Generator
+    from tpufusion_torch.models.vgg16 import VGG16
     from tpufusion_torch.pipeline import FusionPipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -70,7 +73,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: FusionDrawer.create("ffhq", size=32, channel_multiplier=1),
                   lambda: Generator(32, channel_multiplier=1),
                   lambda: Encoder4Editing(8, base_channels=16, unit_counts=(1, 1, 1, 1),
-                                          input_size=32)):
+                                          input_size=32),
+                  lambda: VGG16()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     with pytest.raises(RuntimeError):
@@ -95,10 +99,22 @@ def test_wrappers_raise_off_cpu_when_library_is_missing(monkeypatch):
                        _meta(), _meta(32))
     with pytest.raises(RuntimeError, match="unavailable"):
         pu.pgd_update(x, x, x, 0.1, 0.1)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        au.fused_adam(x, x, au.adam_init(x), 0.1)
     # CPU tensors never reach the loader
     t = torch.zeros(1, 8, 8, 32)
     assert c3.conv3x3(t, torch.zeros(3, 3, 32, 32)).shape == t.shape
     assert pu.pgd_update(t, t, t, 0.1, 0.1).shape == t.shape
+    assert au.fused_adam(t, t, au.adam_init(t), 0.1)[0] is t
+
+
+def test_fused_adam_kernel_takes_float32_only(monkeypatch):
+    """The pixel buffer and its moments are float32 under every policy: the
+    kernel wrapper refuses another dtype before it launches."""
+    monkeypatch.setattr(_lib, "load", lambda name: types.SimpleNamespace(tf_adam_update=None))
+    x = torch.empty((2, 3), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(TypeError, match="float32"):
+        au.adam_update_kernel(x, x, x, x, 0.1, 0.1, 0.1)
 
 
 def test_loader_raises_when_nvcc_cannot_build(monkeypatch, tmp_path):

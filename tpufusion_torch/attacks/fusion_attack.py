@@ -13,13 +13,12 @@ from __future__ import annotations
 import dataclasses
 
 from tpufusion_torch.attacks.pgd import PGDConfig, make_pgd
+from tpufusion_torch.models.vgg16 import perceptual_distance
 from tpufusion_torch.pipeline import FusionPipeline, latents_with
 
 _SPATIAL = ("spatial fusion is not ported yet: ROADMAP.md queue A, item "
             "'Spatial fusion' (fusion_hierarchy, fusion/spatial.py and the "
             "spatial mode of attacks/fusion_attack.py)")
-_VGG = ("the 'vgg' objective is not ported yet: ROADMAP.md queue A, item "
-        "'VGG16 and the white-box attack'")
 
 
 def make_fused_image_fn(pipeline: FusionPipeline, mode: str = "arithmetic"):
@@ -43,18 +42,23 @@ def make_fused_image_fn(pipeline: FusionPipeline, mode: str = "arithmetic"):
 @dataclasses.dataclass(frozen=True)
 class FusionAttackConfig:
     mode: str = "arithmetic"  # 'spatial' is not ported yet
-    objective: str = "pixel"  # 'vgg' is not ported yet
+    objective: str = "pixel"  # 'pixel' (MSE) or 'vgg' (perceptual taps)
     targeted: bool = True     # pull the fused image toward `target`; False: away
     pgd: PGDConfig = PGDConfig(eps=8 / 255 * 2, alpha=0.01 * 2, steps=40)
 
 
 def make_fusion_loss(pipeline: FusionPipeline, config: FusionAttackConfig):
-    """``loss(adv_inputs, target) -> scalar``: the attack's objective."""
-    if config.objective == "vgg":
-        raise NotImplementedError(_VGG)
-    if config.objective != "pixel":
+    """``loss(adv_inputs, target) -> scalar``: the attack's objective, the
+    pixel MSE or the VGG16 perceptual distance of the pooled images."""
+    if config.objective not in ("pixel", "vgg"):
         raise ValueError(f"objective must be 'pixel' or 'vgg', got {config.objective!r}")
     fused_fn = make_fused_image_fn(pipeline, config.mode)
+
+    if config.objective == "vgg":
+        def loss_fn(adv, target):
+            return perceptual_distance(pipeline.vgg_feats(fused_fn(adv)),
+                                       pipeline.vgg_feats(target))
+        return loss_fn
 
     def loss_fn(adv, target):
         d = fused_fn(adv).float() - target.float()

@@ -1,0 +1,307 @@
+"""White-box pixel attack (``optimize_vgg``; port of
+``tpufusion/attacks/whitebox.py``).
+
+Reference semantics (`attack_main2.py:584-671`, variant
+`interpolation.py:743-843`): Adam on the input pixels against a multi-term
+objective combining
+
+  - encoder-latent distance to the target / away from the original,
+  - decoder-reconstruction distance to the target image,
+  - VGG perceptual distances (4-tap MSE sums),
+  - pixel distance to the original image.
+
+The loss encodes and decodes with *raw* e4e codes (no ``latent_avg`` offset
+and no cars trim), as the reference's white-box loop does; the fusion attack
+is the other way round. The no-grad reference bundle (target and original
+latents and VGG taps) is computed once; each iteration is one forward
+(encoder, decoder, two VGG passes, 8 MSE terms), one backward to the pixels
+and one Adam step, the fused ``ops.adam_update.fused_adam`` kernel on the
+card.
+
+One Python loop serves both of the JAX package's executors (its whole-loop
+``scan`` program and its stepwise host loop), so ``WhiteboxConfig`` has no
+``execution`` field. The loop never waits on the device except to move
+snapshot frames to the host.
+
+Two semantics, as in the JAX package:
+- ``make_whitebox_attack`` / ``run_whitebox_stepwise``: the batch is one
+  problem and each term is a mean over the batch;
+- ``make_per_image_whitebox`` (JAX's ``vmap_whitebox`` /
+  ``vmap_whitebox_stepwise``) and ``run_whitebox``: every image has its own
+  Adam trajectory. The N images run as one batch and the backward takes the
+  sum over images of each image's total, so each image's gradient is that of
+  its own loss (a batch mean would scale it by 1/N, which Adam's eps does
+  not cancel). Its traces have shape (B, n_iters) per term.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tpufusion_torch.core.imaging import avg_pool
+from tpufusion_torch.ops.adam_update import adam_init, fused_adam
+from tpufusion_torch.pipeline import FusionPipeline
+
+
+@dataclasses.dataclass(frozen=True)
+class LossWeights:
+    """Coefficients of the 8 loss terms; positive pulls toward, the
+    ``latent_org`` term enters negated in the presets (push away)."""
+
+    latent_target: float = 0.0
+    latent_org: float = 0.0
+    img_rec_target: float = 0.0
+    img_rec_org: float = 0.0
+    img_org: float = 0.0
+    lpips_img: float = 0.0
+    lpips_rec_target: float = 0.0
+    lpips_rec_org: float = 0.0
+
+
+# `attack_main2.py:649`:
+#   10*l_latent_target + l_img_rec_target - l_latent_org + 20*l_img_org + l_lpips_img
+PRESET_ATTACK_MAIN = LossWeights(
+    latent_target=10.0, img_rec_target=1.0, latent_org=-1.0, img_org=20.0,
+    lpips_img=1.0,
+)
+
+# `interpolation.py:818`:
+#   (10*l_latent_target - l_latent_org) + (l_img_rec_target + 0.1*l_lpips_rec_target)
+#   + (10*l_img_org + l_lpips_img)
+PRESET_INTERPOLATION = LossWeights(
+    latent_target=10.0, latent_org=-1.0, img_rec_target=1.0,
+    lpips_rec_target=0.1, img_org=10.0, lpips_img=1.0,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class WhiteboxConfig:
+    lr: float = 1e-4  # reference default (`attack_main2.py:879`)
+    n_iters: int = 100  # iter_dict 100 @1024/512, 50 @256 (`attack_main2.py:908`)
+    weights: LossWeights = PRESET_ATTACK_MAIN
+    # When set, the per-image attack also returns snapshots {adv_input, rec}
+    # taken with the reference's ``args.save_img`` cadence
+    # (`attack_main2.py:657-661`): frame k after k*every + 1 steps, never
+    # after the final step; frames move to host numpy as they come.
+    snapshot_every: Optional[int] = None
+    # Split the batch into ``grad_accum`` sequential chunks per iteration:
+    # only one chunk's forward/backward activations are live at a time,
+    # while the whole batch's pixels and Adam moments stay resident.
+    # Per-image trajectories are independent, so this changes nothing but
+    # reduction order. Per-image attack only.
+    grad_accum: int = 1
+
+
+def default_n_iters(image_size: int) -> int:
+    """The reference's ``iter_dict = {1024:100, 512:100, 256:50}``."""
+    return 50 if image_size <= 256 else 100
+
+
+TERMS = tuple(f.name for f in dataclasses.fields(LossWeights))
+
+
+def _mse(a, b):
+    """Per-image mean squared difference in float32, shape (B,)."""
+    d = a.float() - b.float()
+    return (d * d).flatten(1).mean(dim=1)
+
+
+def _perceptual(feats_a, feats_b):
+    """Per-image ``perceptual_distance``: the sum of per-tap MSEs, (B,)."""
+    return sum(_mse(a, b) for a, b in zip(feats_a, feats_b))
+
+
+def _make_loss(pipeline: FusionPipeline, weights: LossWeights, *, per_image: bool = False):
+    """``loss(x, ref) -> (total, terms)``. All 8 terms are computed (for the
+    trace); only those with a non-zero weight enter ``total``. Each is a
+    mean over the batch, or with ``per_image`` a (B,) vector of per-image
+    means."""
+    factor = pipeline.pool_factor
+    w = weights
+    rec_feats_grad = w.lpips_rec_target != 0.0 or w.lpips_rec_org != 0.0
+
+    def loss_fn(x, ref):
+        r_x = avg_pool(x, factor)
+        latent_pred = pipeline.encoder(r_x)
+        img_rec = pipeline.decode(latent_pred)
+        # unless a lpips_rec term is weighted, the VGG pass over the
+        # reconstruction only feeds the trace and needs no graph
+        with torch.set_grad_enabled(torch.is_grad_enabled() and rec_feats_grad):
+            feats_rec = pipeline.vgg(avg_pool(img_rec, factor))
+        feats_x = pipeline.vgg(r_x)
+        terms = dict(
+            latent_target=_mse(ref["latent_target"], latent_pred),
+            latent_org=_mse(ref["latent_org"], latent_pred),
+            img_rec_target=_mse(ref["target"], img_rec),
+            img_rec_org=_mse(ref["img_org"], img_rec),
+            img_org=_mse(ref["img_org"], x),
+            lpips_img=_perceptual(feats_x, ref["feats_org"]),
+            lpips_rec_target=_perceptual(feats_rec, ref["feats_target"]),
+            lpips_rec_org=_perceptual(feats_rec, ref["feats_org"]),
+        )
+        if not per_image:
+            terms = {k: v.mean() for k, v in terms.items()}
+        total = sum(getattr(w, k) * v for k, v in terms.items() if getattr(w, k) != 0.0)
+        return total, terms
+
+    return loss_fn
+
+
+def _make_ref(pipeline: FusionPipeline):
+    """The no-grad reference bundle: the original and target images, their
+    raw latents and VGG taps (`attack_main2.py:596-603`)."""
+    factor = pipeline.pool_factor
+
+    @torch.no_grad()
+    def ref_fn(img, target_img):
+        r_org = avg_pool(img, factor)
+        r_t = avg_pool(target_img, factor)
+        return dict(
+            img_org=img,
+            target=target_img,
+            latent_org=pipeline.encoder(r_org),
+            latent_target=pipeline.encoder(r_t),
+            feats_org=pipeline.vgg(r_org),
+            feats_target=pipeline.vgg(r_t),
+        )
+
+    return ref_fn
+
+
+def make_whitebox_stepper(pipeline: FusionPipeline, config: WhiteboxConfig, *,
+                          per_image: bool = False):
+    """``(init, step)``: ``state = init(img, target)``, ``state, terms =
+    step(state)``; the adversarial image is ``state["x"]``, a float32 copy of
+    ``img`` that each step updates in place. Terms are batch means, or with
+    ``per_image`` (B,) vectors whose sum is what the backward takes."""
+    loss_fn = _make_loss(pipeline, config.weights, per_image=per_image)
+    ref_fn = _make_ref(pipeline)
+
+    def init(img, target_img):
+        x = img.detach().float().clone(memory_format=torch.contiguous_format)
+        return dict(x=x, ref=ref_fn(img, target_img), opt_state=adam_init(x))
+
+    def step(state):
+        x = state["x"].detach().requires_grad_(True)
+        total, terms = loss_fn(x, state["ref"])
+        (g,) = torch.autograd.grad(total.sum(), x)
+        state["x"], state["opt_state"] = fused_adam(
+            state["x"], g.contiguous(), state["opt_state"], config.lr)
+        terms = {k: v.detach() for k, v in terms.items()}
+        terms["total"] = total.detach()
+        return state, terms
+
+    return init, step
+
+
+def _run(pipeline: FusionPipeline, config: WhiteboxConfig, imgs, targets, *,
+         per_image: bool):
+    """The attack loop shared by both semantics: ``(adv, trace)`` plus the
+    snapshots when ``config.snapshot_every`` is set."""
+    init, step = make_whitebox_stepper(pipeline, config, per_image=per_image)
+    every = config.snapshot_every
+    b = imgs.shape[0]
+    accum = max(int(config.grad_accum or 1), 1)
+    # pad by wrap to a chunk multiple: per-image trajectories are
+    # independent, so the wrapped rows are redundant work sliced off below
+    cb = -(-b // accum)
+    if cb * accum != b:
+        wrap = torch.arange(cb * accum, device=imgs.device) % b
+        imgs = imgs[wrap]
+        targets = targets if targets.shape[0] == 1 else targets[wrap]
+    cuts = [slice(i * cb, (i + 1) * cb) for i in range(accum)]
+    states = [init(imgs[s], targets if targets.shape[0] == 1 else targets[s]) for s in cuts]
+    factor = pipeline.pool_factor
+
+    @torch.no_grad()
+    def rec_of(x):
+        return pipeline.decode(pipeline.encoder(avg_pool(x, factor)))
+
+    def host(ts):
+        return np.concatenate([t.float().cpu().numpy() for t in ts])[:b]
+
+    traces, snaps = [], []
+    for it in range(config.n_iters):
+        chunk_terms = [step(st)[1] for st in states]
+        traces.append(chunk_terms[0] if accum == 1 else {
+            k: torch.cat([t[k] for t in chunk_terms]) for k in chunk_terms[0]})
+        # the reference's post-step check at loop index `it`: no frame at
+        # k = 0 and none after the final step (`attack_main2.py:657`)
+        if every and it % every == 0 and it // every > 0:
+            snaps.append(dict(adv_input=host([st["x"] for st in states]),
+                              rec=host([rec_of(st["x"]) for st in states])))
+    trace = {k: torch.stack([t[k] for t in traces], dim=-1) for k in traces[0]}
+    if per_image:
+        trace = {k: v[:b] for k, v in trace.items()}
+    adv = torch.cat([st["x"] for st in states])[:b]
+    if not every:
+        return adv, trace
+    if not snaps:  # n_iters <= every: the reference writes no frames
+        empty = np.zeros((0, b) + tuple(imgs.shape[1:]), np.float32)
+        return adv, trace, dict(adv_input=empty, rec=empty.copy())
+    return adv, trace, {k: np.stack([s[k] for s in snaps]) for k in snaps[0]}
+
+
+def _no_grad_accum(config: WhiteboxConfig, what: str) -> None:
+    if config.grad_accum > 1:
+        raise ValueError(
+            f"grad_accum > 1 is only supported by the per-image attack "
+            f"(run_whitebox): {what} averages the loss over the batch, so "
+            f"chunking would change the gradient scale")
+
+
+def make_whitebox_attack(pipeline: FusionPipeline, config: WhiteboxConfig):
+    """Build ``attack(img, target_img) -> (adv_img, trace)`` (plus snapshots
+    when ``config.snapshot_every`` is set) on a (1, S, S, 3) image or a
+    naturally batched (B, S, S, 3) batch: every term is a mean over the
+    batch. ``trace`` maps each term and ``total`` to an (n_iters,) tensor.
+    Use ``make_per_image_whitebox`` for per-image trajectories."""
+    _no_grad_accum(config, "make_whitebox_attack")
+
+    def attack(img, target_img):
+        return _run(pipeline, config, img, target_img, per_image=False)
+
+    return attack
+
+
+def run_whitebox_stepwise(pipeline: FusionPipeline, img, target_img,
+                          config: WhiteboxConfig):
+    """``make_whitebox_attack`` without snapshots, ``(adv, trace)``; kept
+    only so the JAX package's entry-point names carry over."""
+    return make_whitebox_attack(pipeline, dataclasses.replace(config, snapshot_every=None))(
+        img, target_img)
+
+
+def make_per_image_whitebox(pipeline: FusionPipeline, config: WhiteboxConfig):
+    """Per-image attack (JAX's ``vmap_whitebox`` / ``vmap_whitebox_stepwise``):
+    ``attack(imgs, targets)`` with ``targets`` either (1, ...) broadcast
+    (white_box_target) or per-image (white_box_patch),
+    `attack_main2.py:472-482`. Returns ``(adv, trace)``, trace (B, n_iters)
+    per term, plus the snapshots {adv_input, rec}, each (K, B, S, S, 3)
+    host numpy, when ``config.snapshot_every`` is set."""
+
+    def attack(imgs, targets):
+        return _run(pipeline, config, imgs, targets, per_image=True)
+
+    return attack
+
+
+def run_whitebox(pipeline: FusionPipeline, inputs, target_img, config: WhiteboxConfig,
+                 which_adv=None):
+    """`white_box` of the reference (`attack_main2.py:465-498`): perturb the
+    images listed in ``which_adv`` (default: all), keep the rest as they
+    are. Returns ``(adv_inputs, traces)``, or ``(adv_inputs, traces, snaps)``
+    when ``config.snapshot_every`` is set (snapshot rows are the attacked
+    subset, in ``which_adv`` order)."""
+    n = inputs.shape[0]
+    which = sorted(set(range(n)) if not which_adv else set(which_adv))
+    idx = torch.as_tensor(which, device=inputs.device)
+    sub_targets = target_img if target_img.shape[0] == 1 else target_img[idx]
+    adv_sel, *rest = make_per_image_whitebox(pipeline, config)(inputs[idx], sub_targets)
+    adv = inputs.clone()
+    adv[idx] = adv_sel.to(adv.dtype)
+    return (adv, *rest)

@@ -1,9 +1,9 @@
 """JAX-package variables -> this package's state dicts.
 
 The inverse of the JAX package's checkpoint converters
-(``tpufusion/io/checkpoint.py::convert_stylegan2_checkpoint`` and
-``::convert_e4e_checkpoint``), written from their layouts without importing
-them. Inputs are the JAX variables as nested dicts of numpy arrays; outputs
+(``tpufusion/io/checkpoint.py::convert_stylegan2_checkpoint``,
+``::convert_e4e_checkpoint`` and the VGG16 loader), written from their layouts
+without importing them. Inputs are the JAX variables as nested dicts of numpy arrays; outputs
 are ``{name: np.ndarray}`` dicts with rosinality / e4e names, ready for
 ``load_state_dict`` after ``torch.from_numpy``.
 
@@ -141,6 +141,13 @@ def encoder_state_from_jax(variables_np: dict, unit_counts) -> dict:
             sd[f"styles.{h}.linear.bias"] = np.asarray(head["linear"]["bias"])
             h += 1
     return sd
+
+
+def vgg_state_from_jax(variables_np: dict) -> dict:
+    """JAX ``VGG16`` variables -> ``conv*_*.{weight (OIHW), bias}``."""
+    return {f"{name}.{k}": v
+            for name, layer in variables_np["params"].items()
+            for k, v in (("weight", _conv(layer["kernel"])), ("bias", np.asarray(layer["bias"])))}
 
 
 def state_dict_to_torch(sd: dict, device=None) -> dict:

@@ -1,12 +1,13 @@
-"""Ops: resampling, modulated conv and the three hand-written Hopper kernels.
+"""Ops: resampling, modulated conv and the four hand-written Hopper kernels.
 
-The kernel modules ``styled_conv``, ``conv3x3`` and ``pgd_update`` each hold a
-kernel wrapper of the same name, its plain twin and its launch count; import
-the wrapper from its module (``from tpufusion_torch.ops.conv3x3 import
-conv3x3``).
+The kernel modules ``styled_conv``, ``conv3x3``, ``pgd_update`` and
+``adam_update`` each hold a kernel wrapper (``fused_adam`` in
+``adam_update``; the others share their module's name), its plain twin and
+its launch count; import the wrapper from its module (``from
+tpufusion_torch.ops.conv3x3 import conv3x3``).
 """
 
-from tpufusion_torch.ops import conv3x3, pgd_update, styled_conv
+from tpufusion_torch.ops import adam_update, conv3x3, pgd_update, styled_conv
 from tpufusion_torch.ops.modconv import modulated_conv2d
 from tpufusion_torch.ops.upfirdn2d import (
     blur,
@@ -20,6 +21,7 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     styled_conv.styled_conv.launches = 0
     pgd_update.pgd_update.launches = 0
+    adam_update.fused_adam.launches = 0
     c3 = conv3x3.conv3x3
     c3.launches_fwd = c3.launches_dgrad = c3.launches_wgrad = 0
 
@@ -33,11 +35,12 @@ def launch_counts() -> dict:
         "conv3x3_dgrad": c3.launches_dgrad,
         "conv3x3_wgrad": c3.launches_wgrad,
         "pgd_update": pgd_update.pgd_update.launches,
+        "fused_adam": adam_update.fused_adam.launches,
     }
 
 
 __all__ = [
-    "blur", "conv3x3", "launch_counts", "make_blur_kernel",
+    "adam_update", "blur", "conv3x3", "launch_counts", "make_blur_kernel",
     "modulated_conv2d", "pgd_update", "reset_launch_counts", "styled_conv", "upfirdn2d",
     "upsample_2x",
 ]

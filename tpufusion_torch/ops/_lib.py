@@ -32,6 +32,7 @@ SIGNATURES = {
                 "tf_conv3x3_wgrad": [_P] * 4 + [_I] * 6 + [_P]},
     "pgd_update": {"tf_pgd_update": [_P] * 4 + [ctypes.c_longlong, _I, _I]
                    + [_F] * 4 + [_P]},
+    "adam_update": {"tf_adam_update": [_P] * 4 + [ctypes.c_longlong, _I] + [_F] * 3 + [_P]},
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

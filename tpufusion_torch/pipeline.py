@@ -1,7 +1,7 @@
 """FusionPipeline — the model bundle the attacks work against (port of
 ``tpufusion/pipeline.py``): an e4e encoder + StyleGAN2 decoder pair, the
-drawer wrapping the same decoder, and ``latent_avg``. The VGG member and
-``save``/``load`` wait for the white-box slice.
+drawer wrapping the same decoder, the VGG16 perceptual taps and
+``latent_avg``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from tpufusion_torch.core.dtypes import Policy, default_policy, resolve_device
 from tpufusion_torch.core.imaging import avg_pool
 from tpufusion_torch.fusion.drawer import FusionDrawer
 from tpufusion_torch.models.e4e import Encoder4Editing
+from tpufusion_torch.models.vgg16 import VGG16
 
 
 def latents_with(encoder, latent_avg, pool_factor: int, is_cars: bool, images):
@@ -33,6 +34,7 @@ class FusionPipeline:
     dataset: str
     drawer: FusionDrawer
     encoder: Encoder4Editing
+    vgg: VGG16
     latent_avg: torch.Tensor  # (n_latent, 512) float32
     policy: Policy
     encoder_input_size: int = 256
@@ -45,7 +47,9 @@ class FusionPipeline:
                device=None, seed: int = 0) -> "FusionPipeline":
         """Build the bundle with weights drawn from ``seed`` on ``device``
         (``cuda`` unless given). Every weight is frozen: the attacks
-        differentiate with respect to the pixels only."""
+        differentiate with respect to the pixels only. The VGG weights are
+        drawn after the generator's and the encoder's, so a seed gives the
+        same generator and encoder with or without them."""
         device = resolve_device(device)
         policy = policy or default_policy(device)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -57,9 +61,12 @@ class FusionPipeline:
             n_styles, base_channels=encoder_base_channels, unit_counts=encoder_units,
             input_size=encoder_input_size, policy=policy, device=device, generator=gen)
         encoder.requires_grad_(False)
+        vgg = VGG16(policy=policy, device=device, generator=gen)
+        vgg.requires_grad_(False)
         latent_avg = drawer.mean_latent.repeat(n_styles, 1)
-        return cls(dataset=dataset, drawer=drawer, encoder=encoder, latent_avg=latent_avg,
-                   policy=policy, encoder_input_size=encoder_input_size)
+        return cls(dataset=dataset, drawer=drawer, encoder=encoder, vgg=vgg,
+                   latent_avg=latent_avg, policy=policy,
+                   encoder_input_size=encoder_input_size)
 
     @property
     def generator(self):
@@ -92,3 +99,7 @@ class FusionPipeline:
     def decode(self, w_plus):
         """Raw W+ codes -> image (``decoder([codes], input_is_latent=True)``)."""
         return self.generator(w_plus, input_is_latent=True).image
+
+    def vgg_feats(self, images):
+        """Pools to the encoder size, then the four perceptual taps."""
+        return self.vgg(self.pool_to_encoder(images))
