@@ -8,10 +8,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure ends the run with a non-zero exit and no result line):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: the CUDA sources under ``tpufusion_torch/csrc`` compile into
-   ``build/tpufusion_torch`` (one nvcc per source, in parallel);
+   ``build/tpufusion_torch`` (one nvcc per source, in parallel); the conv
+   kernels' registers and spills, from ptxas;
 3. kernels against their plain PyTorch versions on the card, at the shapes
    of both main paths (fusion PGD, batch 1 synthesis; white-box, batch 5),
-   in float32 (TF32 off) and bfloat16, with times;
+   in float32 (TF32 off) and bfloat16, with times, and untimed at the
+   ragged tile edges of the bf16 tensor-core conv kernel; beside
+   styled_conv, cuDNN's conv core (``conv_core_library_ms``);
 4. a small-input reference: a 32^2 pipeline on the card (fp32 policy, through
    the kernels) against the same weights on the CPU (plain versions): the
    fused image, the pixel and 'vgg' objectives' gradients, and a 3-iteration
@@ -39,6 +42,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +103,12 @@ STYLED_SHAPES = [(4, 512), (8, 512), (16, 512), (32, 512), (64, 512), (128, 256)
 STYLED_BATCHES = {1: "pgd", 2: None, 5: "whitebox"}
 CONV_SHAPES = {(1, 1024, 32): "pgd", (1, 512, 64): "pgd", (2, 512, 64): None,
                (5, 1024, 32): "whitebox", (5, 512, 64): "whitebox"}
+# ragged edges of the bf16 tensor-core kernel's tiles, checked untimed:
+# styled_conv (n, h, w, cin, cout) -- partial M tiles of the wide and mid
+# classes, a partial K chunk with Cout 96 in the small class; conv3x3
+# (n, h, w, c) -- partial M tiles of the resident-weight class
+STYLED_RAGGED = [(3, 70, 90, 128, 256), (4, 30, 20, 48, 192), (3, 3, 37, 48, 96)]
+CONV_RAGGED = [(2, 37, 53, 64), (1, 33, 70, 32)]
 ADAM_SHAPES = {(5, 1024, 1024, 3): "whitebox", (3, 37, 53, 3): None}
 TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # on max|err| / max(1, max|plain|)
 # pgd_update and fused_adam repeat their plain versions' float32 operations
@@ -140,53 +150,63 @@ def check_kernels(torch, records):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def record(kernel, case, dtype, err, rel, ms=None, plain=None, lib=None, nbytes=0,
-               ops=0, path=None):
+               ops=0, path=None, core=None):
         tol = 0.0 if kernel in EXACT else TOL[dtype]
         ok = _within(err, rel, tol)
         b, by = bound_ms(nbytes, ops, dtype) if nbytes else (None, None)
         records.append(dict(kernel=kernel, case=case, dtype=dtype, max_abs_err=err,
                             rel_err=rel, tol=tol, ok=ok, ms=ms, plain_ms=plain,
-                            library_ms=lib, bound_ms=b, bound_by=by,
-                            path=path if ms is not None else None))
+                            library_ms=lib, conv_core_library_ms=core, bound_ms=b,
+                            bound_by=by, path=path if ms is not None else None))
         log(f"  {kernel:14s} {case:22s} {dtype:8s} max_abs_err {err:.3e} "
             f"(rel {rel:.3e}, tol {tol:.0e}) {'ok' if ok else 'FAIL'}"
             + (f"  kernel {ms:.4f} ms plain {plain:.4f} ms bound {b:.4f} ms ({by})"
                if ms is not None else "")
-            + (f" library {lib:.4f} ms" if lib is not None else ""))
+            + (f" library {lib:.4f} ms" if lib is not None else "")
+            + (f" conv core (cuDNN) {core:.4f} ms" if core is not None else ""))
         if not ok:
             failures.append(f"{kernel} {case} {dtype}: rel err {rel:.3e} > {tol}")
 
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
         isz = torch.tensor([], dtype=dt).element_size()
-        # styled conv: the 9 synthesis shapes, at each path's batch
-        for n, path in STYLED_BATCHES.items():
-            for res, ch in STYLED_SHAPES:
-                x = rn(n, res, res, ch, dtype=dt)
-                w = rn(3, 3, ch, ch, dtype=torch.float32)
-                s = rn(n, ch, dtype=torch.float32) * 0.5 + 1.0
-                noise = rn(1, res, res, 1, dtype=torch.float32)
-                ns = torch.tensor(0.1, device=dev)
-                b = rn(ch, dtype=torch.float32) * 0.1
-                args = (x, w, s, noise, ns, b)
-                y = sc.styled_conv_kernel(*args)
-                torch.cuda.synchronize()
-                err, rel = _err(torch, y, sc.styled_conv_plain(*args))
-                timed = dtype_name == "bfloat16" and path is not None
-                ms = time_ms(torch, lambda: sc.styled_conv_kernel(*args)) if timed else None
-                plain = time_ms(torch, lambda: sc.styled_conv_plain(*args)) if timed else None
-                record("styled_conv", f"n{n} {res}^2 c{ch}", dtype_name, err, rel, ms, plain,
-                       nbytes=n * res * res * 2 * ch * isz + 9 * ch * ch * isz,
-                       ops=2 * 9 * ch * ch * n * res * res, path=path)
-        # low-channel conv: forward, input grad, weight grad
-        for (n, res, ch), path in CONV_SHAPES.items():
-            x = rn(n, res, res, ch, dtype=dt)
-            w = (rn(3, 3, ch, ch, dtype=torch.float32) / math.sqrt(9 * ch)).to(dt)
-            g = rn(n, res, res, ch, dtype=dt)
+        # styled conv: the 9 synthesis shapes, at each path's batch, then
+        # the ragged edges of the bf16 kernel's tiles (untimed)
+        styled_cases = [(n, res, res, ch, ch, path) for n, path in STYLED_BATCHES.items()
+                        for res, ch in STYLED_SHAPES]
+        styled_cases += [(*shape, None) for shape in STYLED_RAGGED]
+        for n, h, wd, cin, cout, path in styled_cases:
+            x = rn(n, h, wd, cin, dtype=dt)
+            w = rn(3, 3, cin, cout, dtype=torch.float32)
+            s = rn(n, cin, dtype=torch.float32) * 0.5 + 1.0
+            noise = rn(1, h, wd, 1, dtype=torch.float32)
+            ns = torch.tensor(0.1, device=dev)
+            b = rn(cout, dtype=torch.float32) * 0.1
+            args = (x, w, s, noise, ns, b)
+            y = sc.styled_conv_kernel(*args)
+            torch.cuda.synchronize()
+            err, rel = _err(torch, y, sc.styled_conv_plain(*args))
             timed = dtype_name == "bfloat16" and path is not None
-            act = n * res * res * ch * isz
-            ops = 2 * 9 * ch * ch * n * res * res
-            case = f"n{n} {res}^2 c{ch}"
+            ms = time_ms(torch, lambda: sc.styled_conv_kernel(*args)) if timed else None
+            plain = time_ms(torch, lambda: sc.styled_conv_plain(*args)) if timed else None
+            case = f"n{n} {h}^2 c{cin}" if (h, cin) == (wd, cout) else \
+                f"n{n} {h}x{wd} c{cin}->{cout}"
+            record("styled_conv", case, dtype_name, err, rel, ms, plain,
+                   nbytes=n * h * wd * (cin + cout) * isz + 9 * cin * cout * isz,
+                   ops=2 * 9 * cin * cout * n * h * wd, path=path,
+                   core=_conv_core_ms(torch, *args) if timed else None)
+        # low-channel conv: forward, input grad, weight grad; then the
+        # ragged edges (untimed)
+        conv_cases = [(n, res, res, ch, path) for (n, res, ch), path in CONV_SHAPES.items()]
+        conv_cases += [(*shape, None) for shape in CONV_RAGGED]
+        for n, h, wd, ch, path in conv_cases:
+            x = rn(n, h, wd, ch, dtype=dt)
+            w = (rn(3, 3, ch, ch, dtype=torch.float32) / math.sqrt(9 * ch)).to(dt)
+            g = rn(n, h, wd, ch, dtype=dt)
+            timed = dtype_name == "bfloat16" and path is not None
+            act = n * h * wd * ch * isz
+            ops = 2 * 9 * ch * ch * n * h * wd
+            case = f"n{n} {h}^2 c{ch}" if h == wd else f"n{n} {h}x{wd} c{ch}"
             xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
             wn = w.permute(3, 2, 0, 1).contiguous()
 
@@ -268,6 +288,18 @@ def check_kernels(torch, records):
         fail("kernel disagrees with its plain version: " + "; ".join(failures))
 
 
+def _conv_core_ms(torch, x, weight, style, *_):
+    """The cuDNN yardstick for styled_conv's conv core: ``F.conv2d`` of the
+    modulated input (bf16, channels-last) with the scaled weights, without
+    the demodulation / noise / bias / activation epilogue, so it is kept
+    apart from ``library_ms`` (timed only; the port never calls it)."""
+    cin = x.shape[-1]
+    xs = (x * style.to(x.dtype)[:, None, None, :]).permute(0, 3, 1, 2)
+    wn = (weight / math.sqrt(9 * cin)).to(x.dtype).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    return time_ms(torch, lambda: torch.nn.functional.conv2d(xs, wn, padding=1))
+
+
 def _torch_adam_ms(torch, x, g):
     """The library yardstick for one Adam step: ``torch.optim.Adam(fused=True)``
     on the same buffer (timed only; the port never calls it)."""
@@ -285,6 +317,7 @@ def _numbers(rs, path="pgd"):
     if not timed:
         return {}
     lib = [r["library_ms"] for r in timed]
+    core = [r["conv_core_library_ms"] for r in timed]
     bound = sum(r["bound_ms"] for r in timed)
     by_bytes = sum(r["bound_ms"] for r in timed if r["bound_by"] == "bytes")
     errs = {f"max_err_{short}": max(r["max_abs_err"] for r in rs if r["dtype"] == dt)
@@ -298,6 +331,7 @@ def _numbers(rs, path="pgd"):
         "bound_ms": bound,
         "bound_by": "bytes" if by_bytes >= bound - by_bytes else "operations",
         "library_ms": sum(lib) if lib and None not in lib else None,
+        **({"conv_core_library_ms": sum(core)} if None not in core else {}),
         "shapes_timed": [f"{r['case']} {r['dtype']}" for r in timed],
     }
 
@@ -360,6 +394,25 @@ def summarize(records, runs):
 # phase 4: small-input reference (card through the kernels vs CPU plain)
 # ---------------------------------------------------------------------------
 
+SMALL_PIPELINE = dict(size=32, channel_multiplier=1, encoder_base_channels=16,
+                      encoder_units=(1, 1, 1, 1), encoder_input_size=32,
+                      mean_latent_samples=64, seed=3)
+SMALL_WB_LR, SMALL_WB_ITERS = 1e-2, 3
+SMALL_INPUT_SEED = 9
+
+
+def small_inputs(torch, seed=SMALL_INPUT_SEED):
+    """Phase 4's two 32^2 inputs and its target, drawn on the CPU. Seed 9:
+    in float64, moving these inputs by 1e-6 moves no white-box pixel by a
+    quarter of the check's 0.2 lr, where at seed 4 a 1e-7 change, which
+    float32 rounding alone makes, moved pixels by 0.5 lr
+    (tests/test_torch_phase4_witness.py)."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((2, 32, 32, 3), generator=gen) * 2 - 1
+    t = torch.rand((1, 32, 32, 3), generator=gen) * 2 - 1
+    return x, t
+
+
 def check_small_reference(torch):
     from tpufusion_torch.attacks.fusion_attack import (
         FusionAttackConfig, make_fused_image_fn, make_fusion_loss)
@@ -369,17 +422,12 @@ def check_small_reference(torch):
     from tpufusion_torch.pipeline import FusionPipeline
 
     torch.backends.cudnn.allow_tf32 = False
-    kw = dict(size=32, channel_multiplier=1, encoder_base_channels=16,
-              encoder_units=(1, 1, 1, 1), encoder_input_size=32, mean_latent_samples=64,
-              policy=Policy(), seed=3)
-    cpu = FusionPipeline.create("ffhq", device="cpu", **kw)
-    gpu = FusionPipeline.create("ffhq", device="cuda", **kw)
+    cpu = FusionPipeline.create("ffhq", device="cpu", policy=Policy(), **SMALL_PIPELINE)
+    gpu = FusionPipeline.create("ffhq", device="cuda", policy=Policy(), **SMALL_PIPELINE)
     for name in ("generator", "encoder", "vgg"):
         getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
     gpu.latent_avg = cpu.latent_avg.cuda()
-    gen = torch.Generator().manual_seed(4)
-    x = torch.rand((2, 32, 32, 3), generator=gen) * 2 - 1
-    t = torch.rand((1, 32, 32, 3), generator=gen) * 2 - 1
+    x, t = small_inputs(torch)
     with torch.no_grad():
         f_cpu = make_fused_image_fn(cpu)(x)
         f_gpu = make_fused_image_fn(gpu)(x.cuda()).cpu()
@@ -409,8 +457,8 @@ def check_small_reference(torch):
     # own gradient history and amplifies the leaky-ReLU-kink differences of
     # the two devices' gradients (tests/test_torch_whitebox.py), so the worst
     # pixel is held to 0.2 lr and the mean to 1e-5.
-    lr = 1e-2
-    cfg = WhiteboxConfig(lr=lr, n_iters=3)
+    lr = SMALL_WB_LR
+    cfg = WhiteboxConfig(lr=lr, n_iters=SMALL_WB_ITERS)
     outs = [run_whitebox(p, x.to(dev), t.to(dev), cfg) for p, dev in ((cpu, "cpu"),
                                                                       (gpu, "cuda"))]
     tr_cpu, tr_gpu = (o[1]["total"].cpu() for o in outs)
@@ -595,9 +643,13 @@ def run_whitebox_path(torch, card, pipe):
         whitebox_adam_bound=adam_bound), lambda: step(state)
 
 
-KERNEL_NAMES = (("conv3x3_fwd_kernel<float, true>", "styled_conv"),
-                ("conv3x3_fwd_kernel<__nv_bfloat16, true>", "styled_conv"),
-                ("conv3x3_fwd_kernel", "conv3x3_fwd/dgrad"),
+# substrings of the profiler's kernel names -> phase 6/6b's groups (the first
+# that matches); the styled and plain instantiations of the shared conv
+# kernels, and their fp32 (CUDA cores) and bf16 (tensor cores) routes, apart
+KERNEL_NAMES = (("conv3x3_mma_kernel<true", "styled_conv bf16"),
+                ("conv3x3_mma_kernel<false", "conv3x3_fwd/dgrad bf16"),
+                ("conv3x3_fwd_kernel<float, true>", "styled_conv fp32"),
+                ("conv3x3_fwd_kernel<float, false>", "conv3x3_fwd/dgrad fp32"),
                 ("conv3x3_wgrad_kernel", "conv3x3_wgrad"),
                 ("sum_partials_kernel", "conv3x3_wgrad"),
                 ("pgd_kernel", "pgd_update"),
@@ -647,6 +699,33 @@ def profile_step(torch, run, *, step_ms, what):
                 top=[dict(kernel=k, ms=ms, count=c) for k, ms, c in rows[:40]])
 
 
+def ptxas_summary(text: str):
+    """``(kernel, registers, spilled bytes)`` for each entry function in
+    nvcc's ``-Xptxas=-v`` output; the tensor-core kernel's tile class is
+    shown by its ``MmaTile`` arguments."""
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '_ZN2tf(\d+)(\w+)'", line)
+        if m:
+            n = int(m.group(1))
+            name, rest = m.group(2)[:n], m.group(2)[n:]
+            tile = re.search(r"MmaTileI((?:L[ib]\d+E)+)", rest)
+            if tile:
+                args = ", ".join(re.findall(r"L[ib](\d+)E", tile.group(1)))
+                name += f"<{'styled' if rest.startswith('ILb1') else 'plain'}, MmaTile<{args}>>"
+            elif rest.startswith("I"):
+                dtype = "float" if rest[1] == "f" else "bf16"
+                name += f"<{dtype}{', styled' if rest[2:6] == 'Lb1E' else ''}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return rows
+
+
 def main() -> None:
     if not os.path.isfile(os.path.join(HERE, "tpufusion_torch", "__init__.py")):
         fail("tpufusion_torch/ not found beside chip_smoke.py: run it from a checkout")
@@ -668,6 +747,10 @@ def main() -> None:
 
     secs = _lib.build()
     log(f"  built {', '.join(_lib.SOURCES)} in {secs:.2f} s -> {_lib.BUILD_DIR}")
+    for source in ("styled_conv", "conv3x3"):
+        for kernel, regs, spill in ptxas_summary(
+                (_lib.BUILD_DIR / f"{source}.ptxas.txt").read_text()):
+            log(f"  {source}.cu {kernel}: {regs} registers, {spill} bytes spilled")
 
     log("== 3. kernels against their plain versions")
     records = []

@@ -43,14 +43,42 @@ def _close(got, want, dtype, tol=None):
     assert err <= tol * max(1.0, want.abs().max().item()), err
 
 
+def _styled_args(gen, dtype, n, h, w, cin, cout):
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    return (rn(n, h, w, cin).to(dtype), rn(3, 3, cin, cout), rn(n, cin) * 0.5 + 1,
+            rn(1, h, w, 1), torch.tensor(0.2, device="cuda"), rn(cout) * 0.1)
+
+
+# the bf16 kernel's tile classes and their ragged edges: Narrow (Cout 32/64,
+# resident weights), Wide and Mid (Cout % 128 / % 64 with enough blocks),
+# Small (the rest); Cin 48 leaves a partial K chunk, Cout 96 a partial N
+# tile of the wider classes, 3 x 37, 70 x 90 and 30 x 20 partial M tiles,
+# batch 3 at 4^2 many tiles of a few pixels
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,res,cin,cout", [(1, 4, 512, 512), (2, 13, 64, 32),
-                                            (2, 40, 32, 64)])
-def test_styled_conv_kernel(cuda, dtype, n, res, cin, cout):
-    rn = lambda *s: torch.randn(s, generator=cuda, device="cuda")  # noqa: E731
-    args = (rn(n, res, res, cin).to(dtype), rn(3, 3, cin, cout), rn(n, cin) * 0.5 + 1,
-            rn(1, res, res, 1), torch.tensor(0.2, device="cuda"), rn(cout) * 0.1)
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 4, 4, 512, 512), (2, 13, 13, 64, 32), (2, 40, 40, 32, 64), (2, 16, 16, 48, 64),
+    (2, 16, 16, 32, 96), (1, 3, 37, 64, 64), (3, 4, 4, 512, 512), (3, 70, 90, 128, 256),
+    (1, 9, 21, 48, 128), (4, 30, 20, 48, 192)])
+def test_styled_conv_kernel(cuda, dtype, n, h, w, cin, cout):
+    args = _styled_args(cuda, dtype, n, h, w, cin, cout)
     _close(sc.styled_conv_kernel(*args), sc.styled_conv_plain(*args), dtype)
+
+
+def test_styled_conv_bf16_autograd(cuda):
+    """bf16 on the card: the forward is the kernel, the gradients those of
+    ``styled_conv_reference`` (the backward recomputes it)."""
+    x, w, s, noise, ns, b = _styled_args(cuda, torch.bfloat16, 2, 24, 20, 64, 64)
+    ins = [t.clone().requires_grad_(True) for t in (x, w, s, b)]
+    before = sc.styled_conv.launches
+    y = sc.styled_conv(ins[0], ins[1], ins[2], noise, ns, ins[3])
+    assert sc.styled_conv.launches == before + 1
+    g = torch.randn(y.shape, generator=cuda, device="cuda").to(y.dtype)
+    grads = torch.autograd.grad(y, ins, g)
+    refs = [t.clone().requires_grad_(True) for t in (x, w, s, b)]
+    y_ref = sc.styled_conv_reference(refs[0], refs[1], refs[2], noise, ns, refs[3])
+    _close(y, y_ref, torch.bfloat16)
+    for got, want in zip(grads, torch.autograd.grad(y_ref, refs, g)):
+        _close(got, want, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -62,6 +90,33 @@ def test_conv3x3_kernels(cuda, dtype, n, h, w, c):
     _close(c3.conv3x3_forward_kernel(x, wt), c3.conv3x3_plain(x, wt), dtype)
     _close(c3.conv3x3_input_grad_kernel(g, wt), c3.conv3x3_input_grad_plain(g, wt), dtype)
     _close(c3.conv3x3_weight_grad_kernel(x, g), c3.conv3x3_weight_grad_plain(x, g), dtype)
+
+
+def _offset_view(t):
+    """A contiguous copy of ``t`` that starts one element past an aligned
+    allocation (2 or 4 bytes off a 16-byte boundary)."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].copy_(
+        t.reshape(-1)).view(t.shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernels_take_offset_views(cuda, dtype):
+    """Inputs at an odd storage offset (a slice, or a gradient view that
+    ``contiguous()`` keeps) run and agree with the plain versions: the bf16
+    route copies them to an aligned buffer first, the fp32 one reads them
+    in place."""
+    rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(dtype)  # noqa: E731
+    x, g = _offset_view(rn(2, 16, 9, 64)), _offset_view(rn(2, 16, 9, 64))
+    wt = _offset_view((rn(3, 3, 64, 64).float() / 24).to(dtype))
+    assert x.data_ptr() % 16 and g.data_ptr() % 16 and wt.data_ptr() % 16
+    _close(c3.conv3x3_forward_kernel(x, wt), c3.conv3x3_plain(x, wt), dtype)
+    _close(c3.conv3x3_input_grad_kernel(g, wt), c3.conv3x3_input_grad_plain(g, wt), dtype)
+    args = list(_styled_args(cuda, dtype, 2, 12, 10, 32, 64))
+    args[0], args[2], args[5] = (_offset_view(args[i]) for i in (0, 2, 5))
+    _close(sc.styled_conv_kernel(*args), sc.styled_conv_plain(*args), dtype)
+    xg = x.detach().requires_grad_(True)
+    (dx,) = torch.autograd.grad(c3.conv3x3(xg, wt), xg, g)
+    _close(dx, c3.conv3x3_input_grad_plain(g, wt), dtype)
 
 
 def test_conv3x3_autograd_counts_launches(cuda):

@@ -8,10 +8,15 @@
 // (tpufusion_torch/ops/conv3x3.py) prepares those weights.
 //
 // Bound on an H100 at the main-path shapes (C = 32 at 1024^2, C = 64 at
-// 512^2, bf16): about 0.6-1.2 GFLOP per launch against 32-64 MB moved, so
-// the memory rate bounds it (~20-40 us). This first kernel runs on the CUDA
-// cores; the 128-lane width packing of the TPU kernel is not carried over
-// (it existed to fill the TPU's 128-lane matrix unit). See
+// 512^2, bf16): 0.6-1.2 GFLOP per sample against 4 and 2 bytes of x and y
+// per output channel and pixel (33 MB a sample), so the memory rate bounds
+// it (10-20 us a sample). The bf16 forward and input grad run on the tensor
+// cores (conv3x3_mma_kernel, the Narrow class): all Cout in one block,
+// the 9 x C x C weights resident in shared memory, x streamed once through
+// a cp.async ring with the zero halo filled by the copy, y staged for
+// 16-byte stores. float32 runs the CUDA-core kernel. The weight grad stays
+// on the CUDA cores. The 128-lane width packing of the TPU kernel is not
+// carried over (it existed to fill the TPU's 128-lane matrix unit). See
 // conv3x3_common.cuh for the tiling.
 #include "conv3x3_common.cuh"
 
@@ -21,8 +26,8 @@ extern "C" int tf_conv3x3_fwd(const void* x, const void* w, void* y, int N, int 
   if (dtype == 0)
     return tf::launch_conv3x3_fwd<float, false>(x, w, y, nullptr, nullptr, nullptr,
                                                 nullptr, N, H, W, C, C, s);
-  return tf::launch_conv3x3_fwd<__nv_bfloat16, false>(x, w, y, nullptr, nullptr, nullptr,
-                                                      nullptr, N, H, W, C, C, s);
+  return tf::launch_conv3x3_mma<false>(x, w, y, nullptr, nullptr, nullptr, nullptr, N, H, W,
+                                       C, C, s);
 }
 
 // partial: nblocks * 9 * C * C float32 scratch; out: (3, 3, C, C) float32

@@ -36,7 +36,7 @@ SIGNATURES = {
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict = {}
 
@@ -60,7 +60,9 @@ def _stale(name: str) -> bool:
 
 
 def build(names=SOURCES) -> float:
-    """Compile the given sources in parallel; returns the wall seconds."""
+    """Compile the given sources in parallel; returns the wall seconds.
+    nvcc's output (``-Xptxas=-v``: registers and spills per kernel) goes to
+    ``<name>.ptxas.txt`` beside each library."""
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -77,6 +79,7 @@ def build(names=SOURCES) -> float:
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
         else:
             os.replace(tmp, BUILD_DIR / f"lib{name}.so")
+            (BUILD_DIR / f"{name}.ptxas.txt").write_text(out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
@@ -104,6 +107,13 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error (its ``cudaGetLastError``)."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def aligned16(t):
+    """``t``, or a contiguous copy of it where ``t`` does not start on a
+    16-byte boundary (a view at an odd offset): the bf16 conv kernel reads
+    its inputs with 16-byte ``cp.async`` copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
 
 def stream_ptr(t) -> int:

@@ -80,6 +80,8 @@ def conv3x3_forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel: y = conv3x3(x, w)."""
     fn = _lib.load("conv3x3").tf_conv3x3_fwd
     _check(x, w, "conv3x3")
+    if x.dtype == torch.bfloat16:
+        x, w = _lib.aligned16(x), _lib.aligned16(w)
     n, h, wd, c = x.shape
     y = torch.empty_like(x)
     rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c, _lib.dtype_code(x),

@@ -3,10 +3,14 @@ leaky-ReLU(sqrt 2) in one pass (port of ``tpufusion/ops/styled_conv.py``).
 
 Kernel: ``csrc/styled_conv.cu``, replacing the TPU kernel
 ``tpufusion/ops/styled_conv.py::_pallas_styled_conv`` (``_kernel``). The
-kernel reads x once and writes y once: modulation happens as the input tile
-loads, demodulation, bias, noise and the activation before the store. Its
-bounds on an H100 are in the source note; at C >= 128 it is
-operations-bound, at C = 32 / 1024^2 memory-bound.
+kernel reads x once and writes y once: modulation happens on the staged
+input, demodulation, bias, noise and the activation before the store.
+bfloat16 runs on the tensor cores (an implicit GEMM), float32 on the CUDA
+cores. The rounding points are the TPU kernel's: the modulated input
+``x * bf16(s)`` is rounded to the activation dtype, the conv is summed in
+float32, and the epilogue rounds once. Its bounds on an H100 are in the
+source note; at C >= 128 it is operations-bound, at C = 32 / 1024^2
+memory-bound.
 
 The forward is the kernel; the backward is autograd of the composite
 ``styled_conv_reference``, recomputed, as ``_fsc_bwd`` does in JAX. Inside
@@ -91,16 +95,18 @@ def styled_conv_kernel(x, weight, style, noise, noise_strength, bias):
         if t.device != x.device:
             raise ValueError(f"styled_conv: {name} is on {t.device}, x on {x.device}")
     code = _lib.dtype_code(x)
-    scale = 1.0 / math.sqrt(9 * cin)
-    w_s = (weight * scale).to(x.dtype).contiguous()
-    w2 = ((weight.float() * scale) ** 2).sum(dim=(0, 1))
-    s32 = style.float()
-    sigma = torch.rsqrt(s32 ** 2 @ w2 + 1e-8).contiguous()
-    s_in = style.to(x.dtype).float().contiguous()
+    # few device ops here: at the 4^2-32^2 planes the host's time per op,
+    # not the kernel, sets the call's time
+    ws = weight.float() * (1.0 / math.sqrt(9 * cin))
+    w_s = ws.to(x.dtype).contiguous()
+    sigma = torch.rsqrt(style.float().square() @ ws.square().sum(dim=(0, 1)) + 1e-8)
     noise2d = (noise_strength.float() * noise.reshape(h, w).float()).contiguous()
-    b = bias.float().contiguous()
+    # float32 style (the bf16 kernel rounds it to bf16) and bias
+    s32, b = style.float().contiguous(), bias.float().contiguous()
+    if x.dtype == torch.bfloat16:
+        x, s32, b = (_lib.aligned16(t) for t in (x, s32, b))
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    rc = fn(*[t.data_ptr() for t in (x, w_s, y, s_in, sigma, b, noise2d)],
+    rc = fn(*[t.data_ptr() for t in (x, w_s, y, s32, sigma.contiguous(), b, noise2d)],
             n, h, w, cin, cout, code, _lib.stream_ptr(x))
     _lib.check(rc, "styled_conv")
     return y
