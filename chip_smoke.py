@@ -13,12 +13,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 3. kernels against their plain PyTorch versions on the card, at the shapes
    of both main paths (fusion PGD, batch 1 synthesis; white-box, batch 5),
    in float32 (TF32 off) and bfloat16, with times, and untimed at the
-   ragged tile edges of the bf16 tensor-core conv kernel; beside
-   styled_conv, cuDNN's conv core (``conv_core_library_ms``);
+   ragged tile edges of the bf16 tensor-core conv kernels; the weight grad
+   also at tiny and ragged planes where the border is a large share of the
+   sum, to its own 1e-3 limit, with two launches giving the same bits;
+   beside styled_conv, cuDNN's conv core (``conv_core_library_ms``);
+3b. the weight grad through the real call chain: ``styled_conv`` with a
+   weight that requires grad at the two tail shapes (batch 1 and 5, bf16)
+   against autograd through ``styled_conv_plain``, then one full-width
+   ``Generator`` forward and backward with its parameters requiring grad,
+   with the weight-grad launches counted (run after phase 6b, so that the
+   main paths' times and peak memories are taken as before);
 4. a small-input reference: a 32^2 pipeline on the card (fp32 policy, through
    the kernels) against the same weights on the CPU (plain versions): the
    fused image, the pixel and 'vgg' objectives' gradients, and a 3-iteration
-   white-box attack;
+   white-box attack whose pixels are held, on the card and on the CPU, to a
+   float64 CPU run with a per-pixel margin read from that run's own change
+   under a 1e-6 move of the inputs;
 5. the fusion main path at full width: the FFHQ 1024^2 config-f generator +
    e4e IR-SE-50 + VGG16 pipeline (seeded random weights), one fused-image
    forward, FGSM, and PGD with the default eps/alpha for 5 steps after a
@@ -38,6 +48,7 @@ This script imports nothing of JAX or of the JAX package ``tpufusion``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -109,8 +120,19 @@ CONV_SHAPES = {(1, 1024, 32): "pgd", (1, 512, 64): "pgd", (2, 512, 64): None,
 # (n, h, w, c) -- partial M tiles of the resident-weight class
 STYLED_RAGGED = [(3, 70, 90, 128, 256), (4, 30, 20, 48, 192), (3, 3, 37, 48, 96)]
 CONV_RAGGED = [(2, 37, 53, 64), (1, 33, 70, 32)]
+# weight grad only, untimed: planes where the zero border and the partial
+# tiles are a large share of the sum (a single pixel: 8 of 9 taps read only
+# padding; a plane narrower than a k-step; one row and column past a tile)
+WGRAD_RAGGED = [(1, 1, 1, 32), (1, 3, 37, 64), (2, 17, 16, 32), (3, 37, 53, 64)]
 ADAM_SHAPES = {(5, 1024, 1024, 3): "whitebox", (3, 37, 53, 3): None}
 TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # on max|err| / max(1, max|plain|)
+# The weight grad returns float32 sums and rounds nothing to bf16. A product
+# of two bf16 values is exact in float32, so the kernel and its plain version
+# add the same exact terms and differ only by the order of the float32 sums
+# (about 1e-5 of the largest entry at 5 x 1024^2 pixels). The shared bf16
+# limit would pass a kernel that drops a halo row: one row of a 1024^2 plane
+# is 1e-3 of the terms and moves the sum by far less than 3e-2.
+KERNEL_TOL = {("conv3x3_wgrad", "bfloat16"): 1e-3}
 # pgd_update and fused_adam repeat their plain versions' float32 operations
 # one for one, so they must agree bit for bit: any looser bound in bf16 would
 # pass a pgd kernel that drops the alpha * sign(g) step, and an Adam step of
@@ -151,7 +173,7 @@ def check_kernels(torch, records):
 
     def record(kernel, case, dtype, err, rel, ms=None, plain=None, lib=None, nbytes=0,
                ops=0, path=None, core=None):
-        tol = 0.0 if kernel in EXACT else TOL[dtype]
+        tol = 0.0 if kernel in EXACT else KERNEL_TOL.get((kernel, dtype), TOL[dtype])
         ok = _within(err, rel, tol)
         b, by = bound_ms(nbytes, ops, dtype) if nbytes else (None, None)
         records.append(dict(kernel=kernel, case=case, dtype=dtype, max_abs_err=err,
@@ -166,6 +188,28 @@ def check_kernels(torch, records):
             + (f" conv core (cuDNN) {core:.4f} ms" if core is not None else ""))
         if not ok:
             failures.append(f"{kernel} {case} {dtype}: rel err {rel:.3e} > {tol}")
+
+    def check_wgrad(x, g, case, timed, path):
+        """The weight grad against its plain version; two launches on the
+        same inputs must give the same bits (no atomics, a fixed order)."""
+        n, h, wd, ch = x.shape
+        dtype_name = str(x.dtype).removeprefix("torch.")
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        dw = c3.conv3x3_weight_grad_kernel(x, g)
+        again = c3.conv3x3_weight_grad_kernel(x, g)
+        torch.cuda.synchronize()
+        if not torch.equal(dw, again):
+            failures.append(f"conv3x3_wgrad {case} {dtype_name}: two launches on the same "
+                            f"inputs differ by {(dw - again).abs().max().item():.3e}")
+        err, rel = _err(torch, dw, c3.conv3x3_weight_grad_plain(x, g))
+        record("conv3x3_wgrad", case, dtype_name, err, rel,
+               *((time_ms(torch, lambda: c3.conv3x3_weight_grad_kernel(x, g)),
+                  time_ms(torch, lambda: c3.conv3x3_weight_grad_plain(x, g)),
+                  time_ms(torch, lambda: torch.nn.grad.conv2d_weight(
+                      xn, (ch, ch, 3, 3), gn, padding=1)))
+                 if timed else (None, None, None)),
+               nbytes=2 * x.numel() * x.element_size() + 9 * ch * ch * 4,
+               ops=2 * 9 * ch * ch * n * h * wd, path=path)
 
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
@@ -231,16 +275,10 @@ def check_kernels(torch, records):
                      if timed else (None, None, None)),
                    nbytes=2 * act + 9 * ch * ch * isz, ops=ops, path=path)
 
-            dw = c3.conv3x3_weight_grad_kernel(x, g)
-            torch.cuda.synchronize()
-            err, rel = _err(torch, dw, c3.conv3x3_weight_grad_plain(x, g))
-            record("conv3x3_wgrad", case, dtype_name, err, rel,
-                   *((time_ms(torch, lambda: c3.conv3x3_weight_grad_kernel(x, g)),
-                      time_ms(torch, lambda: c3.conv3x3_weight_grad_plain(x, g)),
-                      time_ms(torch, lambda: torch.nn.grad.conv2d_weight(
-                          xn, wn.shape, gn, padding=1)))
-                     if timed else (None, None, None)),
-                   nbytes=2 * act + 9 * ch * ch * 4, ops=ops, path=path)
+            check_wgrad(x, g, case, timed, path)
+        for n, h, wd, ch in WGRAD_RAGGED:
+            check_wgrad(rn(n, h, wd, ch, dtype=dt), rn(n, h, wd, ch, dtype=dt),
+                        f"n{n} {h}x{wd} c{ch}", False, None)
         # PGD update: the main-path shape and an odd size
         for shape in ((2, 1024, 1024, 3), (3, 37, 53, 3)):
             adv = rn(*shape, dtype=dt).clamp(-1, 1)
@@ -391,6 +429,94 @@ def summarize(records, runs):
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the weight grad through the port's real call chain
+# ---------------------------------------------------------------------------
+
+# Both chains round the 3x3 conv's weight grad to bf16 once (the port's
+# backward casts the kernel's float32 sums to the bf16 weight's dtype, cuDNN's
+# weight grad returns bf16): 2^-8 = 3.9e-3 of an entry at most. The leaky-ReLU
+# masks come from bf16 pre-activations that the two forwards round apart at a
+# few pixels, which adds less. 1e-2 of max|plain grad|.
+CHAIN_TOL = 1e-2
+
+
+def check_weight_grad_chain(torch):
+    """``styled_conv`` with ``weight.requires_grad`` at the two tail shapes:
+    its backward recomputes the composite, whose 3x3 conv reaches
+    ``conv3x3_weight_grad_kernel``; ``weight.grad`` is held against autograd
+    through ``styled_conv_plain``, and one launch's device time is read by
+    kernel. Then a full-width ``Generator`` of the
+    script's own (the pipeline's stays frozen) runs forward and backward with
+    its parameters requiring grad."""
+    from tpufusion_torch.models.stylegan2 import Generator
+    from tpufusion_torch.ops import conv3x3 as c3
+    from tpufusion_torch.ops import styled_conv as sc
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(30)
+    count = c3.conv3x3
+    results = []
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for n, res, ch in ((1, 1024, 32), (5, 1024, 32), (1, 512, 64), (5, 512, 64)):
+        x = rn(n, res, res, ch).bfloat16()
+        weight = rn(3, 3, ch, ch)
+        rest = (rn(n, ch) * 0.5 + 1.0, rn(1, res, res, 1), torch.tensor(0.1, device=dev),
+                rn(ch) * 0.1)
+        g = rn(n, res, res, ch).bfloat16()
+        grads = []
+        for fn in (sc.styled_conv, sc.styled_conv_plain):
+            w = weight.clone().requires_grad_(True)
+            before = count.launches_wgrad
+            (dw,) = torch.autograd.grad(fn(x, w, *rest), w, g)
+            torch.cuda.synchronize()
+            grads.append((dw, count.launches_wgrad - before))
+        (got, launched), (want, launched_plain) = grads
+        err, _ = _err(torch, got, want)
+        rel = err / want.abs().max().item()
+        log(f"  styled_conv weight.grad n{n} {res}^2 c{ch} bf16: max_abs_err {err:.3e} "
+            f"(rel {rel:.3e} of max|plain grad|, tol {CHAIN_TOL:.0e}); weight-grad launches "
+            f"{launched} (plain chain {launched_plain})")
+        if (launched, launched_plain) != (1, 0):
+            fail(f"styled_conv backward at n{n} {res}^2 c{ch} launched the weight-grad kernel "
+                 f"{launched} times (plain chain {launched_plain}), expected 1 (0)")
+        if not _within(err, rel, CHAIN_TOL):
+            fail(f"styled_conv weight.grad at n{n} {res}^2 c{ch} disagrees with autograd "
+                 f"through styled_conv_plain: rel err {rel:.3e} > {CHAIN_TOL}")
+        # one launch's device time, the second pass apart (the profiler is
+        # first used in phase 6, after the main paths' step times are taken)
+        parts = device_ms_by_group(torch, lambda: c3.conv3x3_weight_grad_kernel(x, g))
+        log("    conv3x3_weight_grad_kernel device ms per launch (torch.profiler): "
+            + (", ".join(f"{k} {v:.4f}" for k, v in sorted(parts.items())) or "not measured"))
+        results.append(dict(case=f"n{n} {res}^2 c{ch}", max_abs_err=err, rel_err=rel,
+                            tol=CHAIN_TOL, wgrad_launches=launched, wgrad_device_ms=parts))
+
+    model = Generator(size=1024, channel_multiplier=2, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(31))
+    z = torch.randn((1, model.style_dim), generator=gen, device=dev).to(
+        model.policy.compute_dtype)
+    before = count.launches_wgrad
+    image = model([z]).image
+    image.backward(torch.randn(image.shape, generator=gen, device=dev))
+    torch.cuda.synchronize()
+    launched = count.launches_wgrad - before
+    params = list(model.named_parameters())
+    bad = [name for name, p in params if p.grad is None or not torch.isfinite(p.grad).all()]
+    log(f"  full-width Generator (1024^2, batch 1) forward + backward: weight-grad launches "
+        f"{launched}, {len(params) - len(bad)} of {len(params)} parameter grads finite")
+    if launched != 2:
+        fail(f"the generator's backward launched the weight-grad kernel {launched} times, "
+             f"expected 2 (the 512^2 c64 and 1024^2 c32 styled convs)")
+    if tuple(image.shape) != (1, 1024, 1024, 3) or bad:
+        fail(f"generator backward: image {tuple(image.shape)}, parameters without a finite "
+             f"grad: {bad[:8]}")
+    return dict(styled_conv=results, generator_wgrad_launches=launched,
+                generator_parameters=len(params))
+
+
+# ---------------------------------------------------------------------------
 # phase 4: small-input reference (card through the kernels vs CPU plain)
 # ---------------------------------------------------------------------------
 
@@ -399,18 +525,78 @@ SMALL_PIPELINE = dict(size=32, channel_multiplier=1, encoder_base_channels=16,
                       mean_latent_samples=64, seed=3)
 SMALL_WB_LR, SMALL_WB_ITERS = 1e-2, 3
 SMALL_INPUT_SEED = 9
+WITNESS_STEP, WITNESS_DRAWS = 1e-6, 4  # the float64 witness's input moves
 
 
 def small_inputs(torch, seed=SMALL_INPUT_SEED):
-    """Phase 4's two 32^2 inputs and its target, drawn on the CPU. Seed 9:
-    in float64, moving these inputs by 1e-6 moves no white-box pixel by a
-    quarter of the check's 0.2 lr, where at seed 4 a 1e-7 change, which
-    float32 rounding alone makes, moved pixels by 0.5 lr
+    """Phase 4's two 32^2 inputs and its target, drawn on the CPU. The
+    white-box check holds at any seed (``hold_to_witness``); at seed 9 no
+    pixel needs more than the flat 0.2 lr, at seed 4 a few do
     (tests/test_torch_phase4_witness.py)."""
     gen = torch.Generator().manual_seed(seed)
     x = torch.rand((2, 32, 32, 3), generator=gen) * 2 - 1
     t = torch.rand((1, 32, 32, 3), generator=gen) * 2 - 1
     return x, t
+
+
+@contextlib.contextmanager
+def _float64_casts(torch):
+    """Every ``Tensor.float()`` in the port returns float64 inside."""
+    own = "float" in torch.Tensor.__dict__
+    cast = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **k: self.double()
+    try:
+        yield
+    finally:
+        if own:
+            torch.Tensor.float = cast
+        else:
+            del torch.Tensor.float
+
+
+def whitebox_witness(torch, cpu, x, t, cfg, step=WITNESS_STEP, draws=WITNESS_DRAWS):
+    """The white-box attack of ``cfg`` on the CPU in float64 (the weights of
+    the float32 pipeline ``cpu`` widened, every cast to float32 in the port
+    made a cast to float64), from ``x`` and from ``x`` moved by ``step`` in
+    ``draws`` seeded random directions. Returns the float64 pixel moves from
+    ``x`` and, per pixel, the largest change of that move under the input
+    moves: where it is large, rounding alone decides the pixel's Adam steps,
+    and a float32 run may land that far away."""
+    from tpufusion_torch.attacks.whitebox import run_whitebox
+    from tpufusion_torch.core.dtypes import Policy
+    from tpufusion_torch.pipeline import FusionPipeline
+
+    wide = FusionPipeline.create("ffhq", device="cpu", policy=Policy(torch.float64),
+                                 **SMALL_PIPELINE)
+    for name in ("generator", "encoder", "vgg"):
+        getattr(wide, name).load_state_dict(getattr(cpu, name).state_dict())
+        getattr(wide, name).double()
+    wide.latent_avg = cpu.latent_avg.double()
+    gen = torch.Generator().manual_seed(9)
+    starts = [x.double()] + [
+        x.double() + step * torch.randn(x.shape, generator=gen, dtype=torch.float64)
+        for _ in range(draws)]
+    with _float64_casts(torch):
+        moves = [run_whitebox(wide, s, t.double(), cfg)[0] - s for s in starts]
+    if moves[0].dtype != torch.float64:
+        fail("the float64 witness ran in " + str(moves[0].dtype))
+    change = torch.stack([(m - moves[0]).abs() for m in moves[1:]]).amax(dim=0)
+    return moves[0], change
+
+
+def hold_to_witness(adv, x, base, change, mask, lr):
+    """A float32 run's adversarial images ``adv`` against the float64 run:
+    each masked pixel's move within 0.2 lr plus that pixel's own float64
+    change of the witness's move ``base``. The flat part is the limit as it
+    was; the margin widens only at pixels whose float64 run is itself
+    unstable. Returns the worst excess over the margin (<= 0 passes), the
+    worst difference, the mean difference and the number of pixels that
+    needed more than the flat 0.2 lr."""
+    d = ((adv.double().cpu() - x.double()) - base).abs()[mask]
+    margin = 0.2 * lr + change[mask]
+    return dict(excess=(d - margin).max().item(), worst=d.max().item(),
+                mean=d.mean().item(), needed_margin=int((d > 0.2 * lr).sum()),
+                pixels=int(mask.sum()))
 
 
 def check_small_reference(torch):
@@ -455,8 +641,11 @@ def check_small_reference(torch):
     # lr * g / (|g| + eps): where the gradient vanishes, float noise moves a
     # pixel by up to lr). From the second step Adam divides by each pixel's
     # own gradient history and amplifies the leaky-ReLU-kink differences of
-    # the two devices' gradients (tests/test_torch_whitebox.py), so the worst
-    # pixel is held to 0.2 lr and the mean to 1e-5.
+    # the two devices' gradients (tests/test_torch_whitebox.py), so the mean
+    # is held to 1e-5 and each pixel, on the card and on the CPU alike, to
+    # 0.2 lr of a float64 CPU run plus that pixel's own float64 change when
+    # the inputs move by 1e-6: at a pixel whose third Adam step flips under
+    # such a move, float32 rounding alone decides where a run lands.
     lr = SMALL_WB_LR
     cfg = WhiteboxConfig(lr=lr, n_iters=SMALL_WB_ITERS)
     outs = [run_whitebox(p, x.to(dev), t.to(dev), cfg) for p, dev in ((cpu, "cpu"),
@@ -471,13 +660,23 @@ def check_small_reference(torch):
     d = (outs[0][0] - outs[1][0].cpu()).abs()[mask]
     log(f"  small reference: white-box 3 iters card vs CPU: total trace rel err {rel:.3e} "
         f"(tol 1e-5); adv where |g| > 1e-6 ({mask.float().mean().item():.3f} of pixels) "
-        f"max err {d.max().item():.3e} (tol {0.2 * lr:.0e}), mean {d.mean().item():.3e} "
-        f"(tol 1e-5)")
+        f"max err {d.max().item():.3e}, mean {d.mean().item():.3e} (tol 1e-5)")
     if not (math.isfinite(rel) and rel <= 1e-5):
         fail(f"32^2 white-box trace on the card disagrees with the CPU: {rel}")
-    if not (d.max().item() <= 0.2 * lr and d.mean().item() <= 1e-5):
-        fail(f"32^2 white-box adv on the card disagrees with the CPU: {d.max().item()}, "
-             f"mean {d.mean().item()}")
+    if not d.mean().item() <= 1e-5:
+        fail(f"32^2 white-box adv on the card disagrees with the CPU: mean {d.mean().item()}")
+    base, change = whitebox_witness(torch, cpu, x, t, cfg)
+    for name, out in zip(("CPU float32", "card"), outs):
+        held = hold_to_witness(out[0], x, base, change, mask, lr)
+        log(f"  small reference: white-box adv, {name} vs float64 CPU: max err "
+            f"{held['worst']:.3e}, mean {held['mean']:.3e}; {held['needed_margin']} of "
+            f"{held['pixels']} pixels needed more than {0.2 * lr:.0e} (largest float64 "
+            f"change under {WITNESS_DRAWS} input moves of {WITNESS_STEP:.0e}: "
+            f"{change[mask].max().item():.3e}); worst excess over the margin "
+            f"{held['excess']:.3e}")
+        if not held["excess"] <= 0:
+            fail(f"32^2 white-box adv ({name}) leaves the float64 run's margin by "
+                 f"{held['excess']}")
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -650,17 +849,52 @@ KERNEL_NAMES = (("conv3x3_mma_kernel<true", "styled_conv bf16"),
                 ("conv3x3_mma_kernel<false", "conv3x3_fwd/dgrad bf16"),
                 ("conv3x3_fwd_kernel<float, true>", "styled_conv fp32"),
                 ("conv3x3_fwd_kernel<float, false>", "conv3x3_fwd/dgrad fp32"),
-                ("conv3x3_wgrad_kernel", "conv3x3_wgrad"),
-                ("sum_partials_kernel", "conv3x3_wgrad"),
+                ("conv3x3_wgrad_mma_kernel", "conv3x3_wgrad bf16"),
+                ("conv3x3_wgrad_kernel", "conv3x3_wgrad fp32"),
+                ("sum_partials_kernel", "conv3x3_wgrad second pass"),
                 ("pgd_kernel", "pgd_update"),
                 ("adam_kernel", "fused_adam"))
+
+
+def _device_rows(prof):
+    """``(kernel name, device ms, calls)`` of every kernel a profile saw."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)) / 1e3
+        if ms > 0:
+            rows.append((e.key, ms, e.count))
+    return rows
+
+
+def device_ms_by_group(torch, run, iters=5):
+    """Device ms per call of ``run`` by ``KERNEL_NAMES`` group, from
+    torch.profiler over ``iters`` calls after a warm-up call; empty when the
+    profiler saw no device time. A kernel's time per call is its mean time
+    times its launches per call, so a launch that the profiler missed while
+    starting up does not shorten it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    groups: dict = {}
+    for key, ms, count in _device_rows(prof):
+        group = next((g for pat, g in KERNEL_NAMES if pat in key), "other kernels")
+        groups[group] = groups.get(group, 0.0) + ms / count * max(1, round(count / iters))
+    return groups
 
 
 def profile_step(torch, run, *, step_ms, what):
     """Device time by kernel for one call of ``run`` (one attack step, after
     a warm-up call), against the unprofiled step time ``step_ms`` of the
     metric named ``what``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -670,13 +904,7 @@ def profile_step(torch, run, *, step_ms, what):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = (getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)) / 1e3
-        if ms > 0:
-            rows.append((e.key, ms, e.count))
+    rows = _device_rows(prof)
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if busy == 0:
@@ -701,18 +929,20 @@ def profile_step(torch, run, *, step_ms, what):
 
 def ptxas_summary(text: str):
     """``(kernel, registers, spilled bytes)`` for each entry function in
-    nvcc's ``-Xptxas=-v`` output; the tensor-core kernel's tile class is
-    shown by its ``MmaTile`` arguments."""
+    nvcc's ``-Xptxas=-v`` output; a tensor-core kernel's tile class is
+    shown by its ``MmaTile`` / ``WgradTile`` arguments."""
     rows, name, spill = [], None, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '_ZN2tf(\d+)(\w+)'", line)
         if m:
             n = int(m.group(1))
             name, rest = m.group(2)[:n], m.group(2)[n:]
-            tile = re.search(r"MmaTileI((?:L[ib]\d+E)+)", rest)
+            tile = re.search(r"(MmaTile|WgradTile)I((?:L[ib]\d+E)+)", rest)
             if tile:
-                args = ", ".join(re.findall(r"L[ib](\d+)E", tile.group(1)))
-                name += f"<{'styled' if rest.startswith('ILb1') else 'plain'}, MmaTile<{args}>>"
+                args = ", ".join(re.findall(r"L[ib](\d+)E", tile.group(2)))
+                kind = "" if tile.group(1) == "WgradTile" else \
+                    ("styled, " if rest.startswith("ILb1") else "plain, ")
+                name += f"<{kind}{tile.group(1)}<{args}>>"
             elif rest.startswith("I"):
                 dtype = "float" if rest[1] == "f" else "bf16"
                 name += f"<{dtype}{', styled' if rest[2:6] == 'Lb1E' else ''}>"
@@ -779,13 +1009,19 @@ def main() -> None:
     wb_profile = profile_step(torch, wb_step, step_ms=main_numbers["whitebox_step_ms"],
                               what="whitebox_step_ms")
 
+    # after the main paths, so that a training-style backward's allocations
+    # and cuDNN plans leave their times and peak memories as they were
+    log("== 3b. the weight grad through styled_conv's and the generator's backward")
+    chain = check_weight_grad_chain(torch)
+
     kernels = summarize(records, {"pgd": (launches, per_step),
                                   "whitebox": (wb_launches, wb_per_step)})
     out_dir = os.path.join(HERE, "runs", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
         json.dump(dict(card=card, records=records, kernels=kernels, main=main_numbers,
-                       profile=profile, whitebox_profile=wb_profile), f, indent=1)
+                       profile=profile, whitebox_profile=wb_profile,
+                       weight_grad_chain=chain), f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

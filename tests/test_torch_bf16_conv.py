@@ -1,9 +1,10 @@
 """bf16 rounding parity of the conv kernels' plain twins with the TPU kernels.
 
 The same numpy inputs, cast to bfloat16, go through the port's plain twins
-(``styled_conv_plain``, ``conv3x3_plain``, ``conv3x3_input_grad_plain``) on
-the CPU and through the JAX package's Pallas kernels in interpret mode
-(``_pallas_styled_conv``, ``pallas_conv.conv3x3_wp`` and its VJP). These pin
+(``styled_conv_plain``, ``conv3x3_plain``, ``conv3x3_input_grad_plain``,
+``conv3x3_weight_grad_plain``) on the CPU and through the JAX package's
+Pallas kernels in interpret mode (``_pallas_styled_conv``,
+``pallas_conv.conv3x3_wp`` and its VJP). These pin
 the rounding points that the Hopper bf16 kernel follows, and that
 ``chip_smoke.py`` phase 3 holds it to: the modulated input ``x * bf16(s)``
 rounded to bf16, float32 sums, the output rounded to bf16.
@@ -12,6 +13,12 @@ Tolerances, on max|diff| / max|JAX|:
 - conv3x3 forward and input grad: 8e-3, two bf16 ulps (2^-8 each). Both
   sides sum bf16 products in float32 and round once; the order of the f32
   sums differs, which can move a rounding by one ulp.
+- conv3x3 weight grad: both sides add exact bf16 products in float32. The
+  TPU kernel's float32 sums (``_conv3x3_wp_dw_impl`` + ``unpack_dw`` to
+  float32) differ from the plain twin's only by the order of the sums:
+  1e-5. ``jax.grad`` of ``conv3x3_wp`` then rounds dw to the bf16 weight's
+  dtype, half a bf16 ulp of an entry (2^-9 of max|dw| at most): 4e-3, one
+  bf16 ulp; the plain twin rounded the same way agrees to the same bound.
 - styled_conv: 2e-2. The TPU kernel rounds its float32 epilogue once; the
   plain twin rounds the conv, the demodulation, the noise and the bias
   adds and the activation each to bf16 (about five half-ulp roundings).
@@ -29,6 +36,8 @@ from tpufusion_torch.ops import conv3x3 as c3
 from tpufusion_torch.ops import styled_conv as sc
 
 CONV_TOL = 8e-3
+WGRAD_F32_TOL = 1e-5
+WGRAD_BF16_TOL = 4e-3
 STYLED_TOL = 2e-2
 
 
@@ -86,3 +95,29 @@ def test_conv3x3_plain_bf16_matches_pallas(interpret, n, h, w, c):
     assert y_t.dtype == dx_t.dtype == torch.bfloat16
     assert _rel(y_t.float().numpy(), np.asarray(y_j, np.float32)) <= CONV_TOL
     assert _rel(dx_t.float().numpy(), np.asarray(dx_j, np.float32)) <= CONV_TOL
+
+
+@pytest.mark.parametrize("n,h,w,c", [(1, 16, 16, 32), (2, 32, 16, 32), (1, 16, 8, 64),
+                                     (2, 16, 16, 64)])
+def test_conv3x3_weight_grad_plain_bf16_matches_pallas(interpret, n, h, w, c):
+    x = _bf16_np(_np((n, h, w, c), 80))
+    wt = _bf16_np(_np((3, 3, c, c), 81, 1 / np.sqrt(9 * c)))
+    g = _bf16_np(_np((n, h, w, c), 82))
+    xj, wj, gj = (jnp.asarray(a, jnp.bfloat16) for a in (x, wt, g))
+    # the gradient a user gets: jax.grad of conv3x3_wp, dw in the weight's bf16
+    dw_j = jax.grad(lambda b: jnp.sum(jpc.conv3x3_wp(xj, b).astype(jnp.float32)
+                                      * gj.astype(jnp.float32)))(wj)
+    assert dw_j.dtype == jnp.bfloat16
+    # the TPU kernel's own float32 sums, before that rounding
+    dw_j32 = jpc.unpack_dw(jpc._conv3x3_wp_dw_impl(xj, gj, c), c, jnp.float32)
+    xt, gt = (torch.from_numpy(a).bfloat16() for a in (x, g))
+    dw_t = c3.conv3x3_weight_grad_plain(xt, gt)
+    assert dw_t.dtype == torch.float32 and tuple(dw_t.shape) == (3, 3, c, c)
+    assert _rel(dw_t.numpy(), np.asarray(dw_j32)) <= WGRAD_F32_TOL
+    assert _rel(dw_t.numpy(), np.asarray(dw_j, np.float32)) <= WGRAD_BF16_TOL
+    assert _rel(dw_t.bfloat16().float().numpy(), np.asarray(dw_j, np.float32)) <= WGRAD_BF16_TOL
+    # the wrapper on CPU tensors: autograd of the plain conv, dw in bf16 too
+    wa = torch.from_numpy(wt).bfloat16().requires_grad_(True)
+    (dw_a,) = torch.autograd.grad(c3.conv3x3(xt, wa), wa, gt)
+    assert dw_a.dtype == torch.bfloat16
+    assert _rel(dw_a.float().numpy(), np.asarray(dw_j, np.float32)) <= WGRAD_BF16_TOL

@@ -14,10 +14,17 @@
 // cores (conv3x3_mma_kernel, the Narrow class): all Cout in one block,
 // the 9 x C x C weights resident in shared memory, x streamed once through
 // a cp.async ring with the zero halo filled by the copy, y staged for
-// 16-byte stores. float32 runs the CUDA-core kernel. The weight grad stays
-// on the CUDA cores. The 128-lane width packing of the TPU kernel is not
-// carried over (it existed to fill the TPU's 128-lane matrix unit). See
-// conv3x3_common.cuh for the tiling.
+// 16-byte stores. The bf16 weight grad (conv3x3_wgrad_mma_kernel) is a
+// tensor-core GEMM over pixels: per tap a C x C product with K = pixels,
+// both operands read from the staged [pixel][channel] tiles with
+// ldmatrix.trans, one block summing all 9 x C x C outputs so that x and g
+// are read once; at C = 32 the bytes bound it (127 FLOP per byte moved), at
+// C = 64 the tensor cores' fragment loads do. Blocks write partials that a
+// second pass adds in a fixed order. float32 runs the CUDA-core kernels,
+// which keep exact float32 products. The 128-lane width packing of the TPU
+// kernels (pack_weights / unpack_dw) is not carried over (it existed to
+// fill the TPU's 128-lane matrix unit). See conv3x3_common.cuh for the
+// tiling.
 #include "conv3x3_common.cuh"
 
 extern "C" int tf_conv3x3_fwd(const void* x, const void* w, void* y, int N, int H,
@@ -30,25 +37,26 @@ extern "C" int tf_conv3x3_fwd(const void* x, const void* w, void* y, int N, int 
                                        C, C, s);
 }
 
-// partial: nblocks * 9 * C * C float32 scratch; out: (3, 3, C, C) float32
+// partial: max_blocks * 9 * C * C float32 scratch; out: (3, 3, C, C) float32.
+// Each route launches as many blocks as it has pixel tiles, at most max_blocks.
 extern "C" int tf_conv3x3_wgrad(const void* x, const void* g, void* partial, void* out,
-                                int N, int H, int W, int C, int nblocks, int dtype,
+                                int N, int H, int W, int C, int max_blocks, int dtype,
                                 void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partial);
+  float* dw = static_cast<float*>(out);
+  if (dtype != 0) {
+    if (C == 32) return tf::launch_wgrad_mma<tf::Wgrad32>(x, g, part, dw, N, H, W, max_blocks, s);
+    if (C == 64) return tf::launch_wgrad_mma<tf::Wgrad64>(x, g, part, dw, N, H, W, max_blocks, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long tiles = (long long)N * ((H + tf::WT_H - 1) / tf::WT_H) *
+                          ((W + tf::WT_W - 1) / tf::WT_W);
+  const int nblocks = (int)(tiles < max_blocks ? tiles : max_blocks);
   const int nt = C / tf::WT_C;
-  dim3 grid(nblocks, nt * nt);
-  if (dtype == 0)
-    tf::conv3x3_wgrad_kernel<float><<<grid, tf::WT_THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<float*>(partial), N, H, W, C);
-  else
-    tf::conv3x3_wgrad_kernel<__nv_bfloat16><<<grid, tf::WT_THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
-        static_cast<float*>(partial), N, H, W, C);
-  int err = (int)cudaGetLastError();
+  tf::conv3x3_wgrad_kernel<float><<<dim3(nblocks, nt * nt), tf::WT_THREADS, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(g), part, N, H, W, C);
+  const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const int total = 9 * C * C;
-  tf::sum_partials_kernel<<<(total + 255) / 256, 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), nblocks, total);
-  return (int)cudaGetLastError();
+  return tf::launch_sum_partials(part, dw, nblocks, 9 * C * C, s);
 }

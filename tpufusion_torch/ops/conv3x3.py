@@ -6,9 +6,12 @@ as a ``torch.autograd.Function`` whose forward, input grad and weight grad
 are hand-written kernels (``csrc/conv3x3.cu``), replacing
 ``pallas_conv.py::_conv3x3_wp_fwd_impl`` (forward and input grad) and
 ``::_conv3x3_wp_dw_impl`` (weight grad). On an H100 these convs are bound by
-the bytes they move (see the source note in ``csrc/conv3x3.cu``). The TPU's
-128-lane width packing (``pack_weights``/``unpack_dw``) is not ported: it
-existed for the TPU's matrix unit.
+the bytes they move (see the source note in ``csrc/conv3x3.cu``). In
+bfloat16 all three run on the tensor cores (the weight grad as a GEMM over
+pixels, ``conv3x3_wgrad_mma_kernel``); float32 runs CUDA-core kernels that
+keep exact float32 products. The TPU's 128-lane width packing
+(``pack_weights``/``unpack_dw``) is not ported: it existed for the TPU's
+matrix unit.
 
 The input grad is the forward kernel on the flipped, channel-transposed
 weights, as ``_wp_bwd`` does. The weight-grad kernel launches only when the
@@ -29,7 +32,9 @@ import torch.nn.functional as F
 from tpufusion_torch.ops import _lib
 
 CHANNELS = (32, 64)
-WGRAD_BLOCKS = 264  # two blocks per SM of an H100
+# weight-grad blocks (one partial sum each) per SM: the bf16 kernel's shared
+# memory and registers leave room for one, the float32 kernel runs two
+WGRAD_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
 
 
 def supported(x_shape, w_shape) -> bool:
@@ -99,7 +104,8 @@ def conv3x3_input_grad_kernel(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_weight_grad_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Launch the weight-grad kernel: dw (3, 3, C, C) float32 summed over
-    the batch and every pixel."""
+    the batch and every pixel (bf16: tensor cores; float32: CUDA cores).
+    The same inputs give the same bits on every launch."""
     fn = _lib.load("conv3x3").tf_conv3x3_wgrad
     c = x.shape[-1]
     if x.dim() != 4 or c not in CHANNELS:
@@ -111,9 +117,13 @@ def conv3x3_weight_grad_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor
             raise ValueError(f"conv3x3 wgrad: {name} must be a contiguous CUDA tensor")
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("conv3x3 wgrad: g must match x in shape, dtype and device")
+    if x.numel() == 0:
+        raise ValueError(f"conv3x3 wgrad: empty input {tuple(x.shape)}")
+    if x.dtype == torch.bfloat16:
+        x, g = _lib.aligned16(x), _lib.aligned16(g)
     n, h, wd, _ = x.shape
-    tiles = n * -(-h // 4) * -(-wd // 32)
-    nblocks = max(1, min(tiles, WGRAD_BLOCKS))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nblocks = WGRAD_BLOCKS_PER_SM[x.dtype] * sms  # the most the kernel launches
     partial = torch.empty((nblocks, 3, 3, c, c), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, c, c), dtype=torch.float32, device=x.device)
     rc = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
