@@ -11,7 +11,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``build/tpufusion_torch`` (one nvcc per source, in parallel); the conv
    kernels' registers and spills, from ptxas;
 3. kernels against their plain PyTorch versions on the card, at the shapes
-   of both main paths (fusion PGD, batch 1 synthesis; white-box, batch 5),
+   of the main paths (fusion PGD, batch 1 synthesis; white-box, batch 5;
+   spatial fusion: batch 1 in the attack, batch 6 in the partial-fusion
+   evaluation, 5 inputs for pgd_update),
    in float32 (TF32 off) and bfloat16, with times, and untimed at the
    ragged tile edges of the bf16 tensor-core conv kernels; the weight grad
    also at tiny and ragged planes where the border is a large share of the
@@ -28,7 +30,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    fused image, the pixel and 'vgg' objectives' gradients, and a 3-iteration
    white-box attack whose pixels are held, on the card and on the CPU, to a
    float64 CPU run with a per-pixel margin read from that run's own change
-   under a 1e-6 move of the inputs;
+   under a 1e-6 move of the inputs; then the spatial fused image of 5
+   inputs and its pixel and 'vgg' gradients;
 5. the fusion main path at full width: the FFHQ 1024^2 config-f generator +
    e4e IR-SE-50 + VGG16 pipeline (seeded random weights), one fused-image
    forward, FGSM, and PGD with the default eps/alpha for 5 steps after a
@@ -37,8 +40,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (``configs/ffhq_whitebox.json``: N = 5 inputs all attacked toward one
    target, PRESET_ATTACK_MAIN, lr 1e-4): one warm-up iteration, then a
    5-iteration ``run_whitebox`` with the launch counts read around it;
-6. device time by kernel for one PGD step and one white-box step, from
-   torch.profiler;
+5c. the spatial-fusion main path at full width on the same pipeline
+   (BASELINE config 3: N = 5 role inputs, VGG objective, default eps and
+   alpha): three fused forwards, FGSM and 5 PGD steps, then the
+   partial-fusion evaluation (both modes, the N+1 variants as one batch 6
+   synthesis) and its metrics, with the launch counts read around it all;
+6. device time by kernel for one PGD step, one white-box step (6b) and one
+   spatial PGD step (6c), from torch.profiler, with the step's kernel
+   launches; 6c also times one full-width blender forward + backward;
 7. the kernels line (JSON, one object) and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -111,7 +120,7 @@ def bound_ms(nbytes: float, ops: float, dtype: str):
 STYLED_SHAPES = [(4, 512), (8, 512), (16, 512), (32, 512), (64, 512), (128, 256),
                  (256, 128), (512, 64), (1024, 32)]
 # the synthesis batch of each main path, by the path's name
-STYLED_BATCHES = {1: "pgd", 2: None, 5: "whitebox"}
+STYLED_BATCHES = {1: "pgd", 2: None, 5: "whitebox", 6: "spatial"}
 CONV_SHAPES = {(1, 1024, 32): "pgd", (1, 512, 64): "pgd", (2, 512, 64): None,
                (5, 1024, 32): "whitebox", (5, 512, 64): "whitebox"}
 # ragged edges of the bf16 tensor-core kernel's tiles, checked untimed:
@@ -125,6 +134,7 @@ CONV_RAGGED = [(2, 37, 53, 64), (1, 33, 70, 32)]
 # padding; a plane narrower than a k-step; one row and column past a tile)
 WGRAD_RAGGED = [(1, 1, 1, 32), (1, 3, 37, 64), (2, 17, 16, 32), (3, 37, 53, 64)]
 ADAM_SHAPES = {(5, 1024, 1024, 3): "whitebox", (3, 37, 53, 3): None}
+PGD_SHAPES = {(2, 1024, 1024, 3): "pgd", (5, 1024, 1024, 3): "spatial", (3, 37, 53, 3): None}
 TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # on max|err| / max(1, max|plain|)
 # The weight grad returns float32 sums and rounds nothing to bf16. A product
 # of two bf16 values is exact in float32, so the kernel and its plain version
@@ -280,7 +290,7 @@ def check_kernels(torch, records):
             check_wgrad(rn(n, h, wd, ch, dtype=dt), rn(n, h, wd, ch, dtype=dt),
                         f"n{n} {h}x{wd} c{ch}", False, None)
         # PGD update: the main-path shape and an odd size
-        for shape in ((2, 1024, 1024, 3), (3, 37, 53, 3)):
+        for shape, path in PGD_SHAPES.items():
             adv = rn(*shape, dtype=dt).clamp(-1, 1)
             img = (adv.float() + 0.01 * rn(*shape, dtype=torch.float32)).clamp(-1, 1).to(dt)
             grd = rn(*shape, dtype=dt)
@@ -288,12 +298,12 @@ def check_kernels(torch, records):
             out = pu.pgd_update_kernel(*args)
             torch.cuda.synchronize()
             err, rel = _err(torch, out, pu.pgd_update_plain(*args))
-            timed = dtype_name == "float32" and shape[1] == 1024
+            timed = dtype_name == "float32" and path is not None
             numel = adv.numel()
             record("pgd_update", "x".join(map(str, shape)), dtype_name, err, rel,
                    time_ms(torch, lambda: pu.pgd_update_kernel(*args)) if timed else None,
                    time_ms(torch, lambda: pu.pgd_update_plain(*args)) if timed else None,
-                   nbytes=4 * numel * isz, ops=7 * numel, path="pgd")
+                   nbytes=4 * numel * isz, ops=7 * numel, path=path)
     # fused Adam (float32 only): the white-box pixel buffer and an odd size,
     # aligned and 4 bytes off alignment, at steps 1 and 50
     for shape, path in ADAM_SHAPES.items():
@@ -376,11 +386,12 @@ def _numbers(rs, path="pgd"):
 
 def summarize(records, runs):
     """One entry per kernel source: launches on the main paths and
-    ``_numbers``. ``runs`` maps each main path ("pgd", "whitebox") to its
-    (launch counts, launches per step); ``launches`` is their sum. The
-    numbers at the top of an entry are those of the kernel's home path (the
-    fusion PGD path, or the white-box path for fused_adam); the other path's
-    shapes, where the kernel has some, are under its name. conv3x3's entry
+    ``_numbers``. ``runs`` maps each main path ("pgd", "whitebox",
+    "spatial") to its (launch counts, launches per step); ``launches`` is
+    their sum. The numbers at the top of an entry are those of the kernel's
+    home path (the fusion PGD path, or the white-box path for fused_adam);
+    another path's shapes, where it has its own, are under its name (the
+    spatial path's batch-1 synthesis shares the PGD path's shapes). conv3x3's entry
     times its on-path launches (forward and input grad, what an attack step
     runs) and lists each of its three kernels under ``parts``; the weight
     grad is off both paths (the attacks freeze the weights)."""
@@ -525,6 +536,7 @@ SMALL_PIPELINE = dict(size=32, channel_multiplier=1, encoder_base_channels=16,
                       mean_latent_samples=64, seed=3)
 SMALL_WB_LR, SMALL_WB_ITERS = 1e-2, 3
 SMALL_INPUT_SEED = 9
+SMALL_SPATIAL_SEED = 10  # the 5 spatial inputs: a generator of their own
 WITNESS_STEP, WITNESS_DRAWS = 1e-6, 4  # the float64 witness's input moves
 
 
@@ -599,9 +611,45 @@ def hold_to_witness(adv, x, base, change, mask, lr):
                 pixels=int(mask.sum()))
 
 
-def check_small_reference(torch):
+def small_spatial_inputs(torch):
+    """Phase 4's five 32^2 spatial inputs (the ffhq roles) and a target."""
+    gen = torch.Generator().manual_seed(SMALL_SPATIAL_SEED)
+    x = torch.rand((5, 32, 32, 3), generator=gen) * 2 - 1
+    t = torch.rand((1, 32, 32, 3), generator=gen) * 2 - 1
+    return x, t
+
+
+def check_fusion_card_vs_cpu(torch, cpu, gpu, x, t, mode):
+    """The fused image (2e-3) and the pixel and 'vgg' objectives' input
+    gradients (1e-2 of the largest entry) of fusion ``mode``, card against
+    CPU."""
     from tpufusion_torch.attacks.fusion_attack import (
         FusionAttackConfig, make_fused_image_fn, make_fusion_loss)
+
+    label = "" if mode == "arithmetic" else f"{mode} "
+    with torch.no_grad():
+        f_cpu = make_fused_image_fn(cpu, mode)(x)
+        f_gpu = make_fused_image_fn(gpu, mode)(x.cuda()).cpu()
+    err = (f_cpu - f_gpu).abs().max().item()
+    log(f"  small reference: {label}fused 32^2 card vs CPU max_abs_err {err:.3e} (tol 2e-3)")
+    if not (math.isfinite(err) and err <= 2e-3):
+        fail(f"32^2 {label}fused image on the card disagrees with the CPU: {err}")
+    for objective in ("pixel", "vgg"):
+        grads = []
+        for p, dev in ((cpu, "cpu"), (gpu, "cuda")):
+            loss_fn = make_fusion_loss(p, FusionAttackConfig(mode=mode, objective=objective))
+            xa = x.to(dev).requires_grad_(True)
+            (g,) = torch.autograd.grad(loss_fn(xa, t.to(dev)), xa)
+            grads.append(g.cpu())
+        rel = ((grads[0] - grads[1]).abs().max() / grads[0].abs().max()).item()
+        log(f"  small reference: {label}'{objective}' loss grad card vs CPU rel err {rel:.3e} "
+            f"(tol 1e-2)")
+        if not (math.isfinite(rel) and rel <= 1e-2):
+            fail(f"32^2 {label}'{objective}' attack gradient on the card disagrees with the "
+                 f"CPU: {rel}")
+
+
+def check_small_reference(torch):
     from tpufusion_torch.attacks.whitebox import (
         PRESET_ATTACK_MAIN, WhiteboxConfig, _make_loss, _make_ref, run_whitebox)
     from tpufusion_torch.core.dtypes import Policy
@@ -612,28 +660,10 @@ def check_small_reference(torch):
     gpu = FusionPipeline.create("ffhq", device="cuda", policy=Policy(), **SMALL_PIPELINE)
     for name in ("generator", "encoder", "vgg"):
         getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    gpu.drawer.blender.load_state_dict(cpu.drawer.blender.state_dict())
     gpu.latent_avg = cpu.latent_avg.cuda()
     x, t = small_inputs(torch)
-    with torch.no_grad():
-        f_cpu = make_fused_image_fn(cpu)(x)
-        f_gpu = make_fused_image_fn(gpu)(x.cuda()).cpu()
-    err = (f_cpu - f_gpu).abs().max().item()
-    log(f"  small reference: fused 32^2 card vs CPU max_abs_err {err:.3e} (tol 2e-3)")
-    if not (math.isfinite(err) and err <= 2e-3):
-        fail(f"32^2 fused image on the card disagrees with the CPU: {err}")
-    for objective in ("pixel", "vgg"):
-        grads = []
-        for p, dev in ((cpu, "cpu"), (gpu, "cuda")):
-            loss_fn = make_fusion_loss(p, FusionAttackConfig(objective=objective))
-            xa = x.to(dev).requires_grad_(True)
-            (g,) = torch.autograd.grad(loss_fn(xa, t.to(dev)), xa)
-            grads.append(g.cpu())
-        rel = ((grads[0] - grads[1]).abs().max() / grads[0].abs().max()).item()
-        log(f"  small reference: '{objective}' loss grad card vs CPU rel err {rel:.3e} "
-            f"(tol 1e-2)")
-        if not (math.isfinite(rel) and rel <= 1e-2):
-            fail(f"32^2 '{objective}' attack gradient on the card disagrees with the CPU: "
-                 f"{rel}")
+    check_fusion_card_vs_cpu(torch, cpu, gpu, x, t, "arithmetic")
 
     # the white-box attack, 3 iterations: the total trace to 1e-5 relative
     # (an H100 run read 5.95e-07, PERF.md);
@@ -677,6 +707,7 @@ def check_small_reference(torch):
         if not held["excess"] <= 0:
             fail(f"32^2 white-box adv ({name}) leaves the float64 run's margin by "
                  f"{held['excess']}")
+    check_fusion_card_vs_cpu(torch, cpu, gpu, *small_spatial_inputs(torch), "spatial")
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -842,6 +873,196 @@ def run_whitebox_path(torch, card, pipe):
         whitebox_adam_bound=adam_bound), lambda: step(state)
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: the spatial-fusion main path at full width
+# ---------------------------------------------------------------------------
+
+SPATIAL_N, SPATIAL_STEPS = 5, 5  # the ffhq roles; BASELINE config 3
+FUSION_MODES = ("spatial", "arithmetic")
+PARTIAL_TOL = 3e-2  # batch 6 against batch 1 in bf16, of max(1, max|ref|)
+# the fewest launches of each kernel in one spatial PGD step: the fused
+# synthesis's 9 styled convs, the 32/64-channel convs of its backward, the
+# pixel update
+SPATIAL_STEP_MIN = {"styled_conv": 9, "conv3x3_fwd": 2, "conv3x3_dgrad": 2, "pgd_update": 1}
+
+
+def spatial_launch_failures(per_step, fwd_launches, eval_launches, n_fwd):
+    """What phase 5c's launch counts fall short of: per PGD step at least
+    ``SPATIAL_STEP_MIN``; exactly 9 styled convs per fused forward; exactly
+    one batch-6 synthesis (9 styled convs) per mode in a round of partial
+    fusions."""
+    out = [f"a spatial PGD step launched {k} {per_step[k]} times, expected >= {n}"
+           for k, n in SPATIAL_STEP_MIN.items() if per_step[k] < n]
+    if fwd_launches != 9 * n_fwd:
+        out.append(f"{n_fwd} spatial fused forwards launched styled_conv {fwd_launches} "
+                   f"times, expected {9 * n_fwd}")
+    if eval_launches != 9 * len(FUSION_MODES):
+        out.append(f"the partial fusions launched styled_conv {eval_launches} times, "
+                   f"expected {9 * len(FUSION_MODES)}")
+    return out
+
+
+def run_spatial_path(torch, card, pipe):
+    """The spatial-fusion PGD attack with the VGG objective on N = 5 1024^2
+    inputs (the ffhq roles) and one target: a warm-up forward and step, then
+    with the launch counts set to 0: three timed no-grad fused forwards,
+    FGSM and 5 PGD steps at the default eps and alpha, then the evaluation
+    of the attack: the benign fusions and the partial fusions of both modes
+    with their metrics (``partial_eval_ms``: both modes' partial fusions and
+    metrics, after one untimed round). The counts are read at the end."""
+    from tpufusion_torch import ops
+    from tpufusion_torch.attacks.fusion_attack import (
+        FusionAttackConfig, fgsm_on_fusion, make_fused_image_fn, make_fusion_attack,
+        make_fusion_loss)
+    from tpufusion_torch.eval import benign_fusion, fused_image_metrics, partial_adv_fusion
+    from tpufusion_torch.fusion.spatial import spatial_fusion
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    inputs = torch.rand((SPATIAL_N, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
+    target = torch.rand((1, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
+    fused_fn = make_fused_image_fn(pipe, "spatial")
+    cfg = FusionAttackConfig(mode="spatial", objective="vgg")
+    pgd_cfg = dataclasses.replace(cfg, pgd=dataclasses.replace(cfg.pgd, steps=SPATIAL_STEPS))
+    eps = cfg.pgd.eps
+
+    with torch.no_grad():
+        fused_fn(inputs)
+    make_fusion_attack(pipe, dataclasses.replace(
+        cfg, pgd=dataclasses.replace(cfg.pgd, steps=1)))(inputs, target, gen)
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    n_fwd = 3
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        for _ in range(n_fwd):
+            fused = fused_fn(inputs)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3 / n_fwd
+    fwd_launches = ops.launch_counts()["styled_conv"]
+    adv1, tr1 = fgsm_on_fusion(pipe, mode="spatial", objective="vgg")(inputs, target)
+    before_pgd = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adv, trace = make_fusion_attack(pipe, pgd_cfg)(inputs, target, gen)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / SPATIAL_STEPS
+    after_pgd = ops.launch_counts()
+    per_step = {k: (after_pgd[k] - before_pgd[k]) / SPATIAL_STEPS for k in after_pgd}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    with torch.no_grad():
+        final_loss = make_fusion_loss(pipe, cfg)(adv, target).item()
+        clean, adv_latents = pipe.get_latents(inputs), pipe.get_latents(adv)
+        benign = {m: benign_fusion(pipe.drawer, clean, m) for m in FUSION_MODES}
+
+        def evaluate():
+            out = {}
+            for m in FUSION_MODES:
+                part = partial_adv_fusion(pipe.drawer, clean, adv_latents, m)
+                out[m] = (part, fused_image_metrics(pipe, benign[m][0], part))
+            return out
+
+        before_eval = ops.launch_counts()["styled_conv"]
+        evaluate()
+        eval_launches = ops.launch_counts()["styled_conv"] - before_eval
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluated = evaluate()
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        ref = spatial_fusion(pipe.drawer, adv_latents)[0]
+    launches = ops.launch_counts()
+
+    if tuple(fused.shape) != (1, 1024, 1024, 3) or not torch.isfinite(fused).all():
+        fail(f"spatial fused image has shape {tuple(fused.shape)} or non-finite values")
+    trace = trace.float().cpu().tolist()
+    for name, a in (("spatial fgsm", adv1), ("spatial pgd", adv)):
+        dev_max = (a - inputs).abs().max().item()
+        if not torch.isfinite(a).all() or dev_max > eps + 1e-6:
+            fail(f"{name}: adv leaves the eps-ball ({dev_max} > {eps})")
+    if not all(math.isfinite(v) for v in trace + [final_loss, tr1.item()]):
+        fail(f"spatial: non-finite loss: {trace}, {final_loss}")
+    if not final_loss < trace[0]:
+        fail(f"spatial loss did not descend: {trace[0]} -> {final_loss}")
+    short = spatial_launch_failures(per_step, fwd_launches, eval_launches, n_fwd)
+    if short:
+        fail("; ".join(short))
+    metrics = {}
+    for m, (part, (mse, vgg, ssim)) in evaluated.items():
+        fz, singles, feats = benign[m]
+        if tuple(part.shape) != (SPATIAL_N + 1, 1024, 1024, 3):
+            fail(f"{m} partial fusion has shape {tuple(part.shape)}")
+        for name, v in (("fused", fz), ("singles", singles), ("features", feats),
+                        ("partial", part), ("mse", mse), ("vgg", vgg), ("ssim", ssim)):
+            if not torch.isfinite(v).all():
+                fail(f"{m} evaluation: non-finite {name}")
+        if not bool(((ssim >= -1) & (ssim <= 1)).all()):
+            fail(f"{m} SSIM outside [-1, 1]: {ssim.tolist()}")
+        metrics[m] = dict(mse=mse.tolist(), vgg=vgg.tolist(), ssim=ssim.tolist())
+    err, rel = _err(torch, evaluated["spatial"][0][-1:], ref)
+    if not _within(err, rel, PARTIAL_TOL):
+        fail(f"the all-adversarial spatial partial (batch 6) disagrees with spatial_fusion "
+             f"at batch 1: rel err {rel:.3e} > {PARTIAL_TOL}")
+    log(f"  spatial_fused_forward_ms {fwd_ms:.3f} [{card}] (mean of {n_fwd})")
+    log(f"  spatial_pgd_step_ms {step_ms:.3f} [{card}] (N={SPATIAL_N} inputs, 1024^2, bf16, "
+        f"'vgg' objective, {SPATIAL_STEPS} steps)")
+    log(f"  spatial_peak_memory_gib {peak_gib:.3f} [{card}]")
+    log(f"  partial_eval_ms {eval_ms:.3f} [{card}] (partial fusions, batch {SPATIAL_N + 1}, "
+        f"and their metrics, both modes)")
+    log(f"  loss trace {trace} -> final {final_loss:.6f}; fgsm loss {tr1.item():.6f}")
+    log(f"  all-adversarial spatial partial vs spatial_fusion at batch 1: max_abs_err "
+        f"{err:.3e} (rel {rel:.3e}, tol {PARTIAL_TOL:.0e})")
+    for m, v in metrics.items():
+        log(f"  {m} partial metrics: mse {v['mse']}, vgg {v['vgg']}, ssim {v['ssim']}")
+    log(f"  launches {launches} ({n_fwd} fused forwards: styled_conv {fwd_launches}; per PGD "
+        f"step {per_step}; partial fusions, one round: styled_conv {eval_launches})")
+    return launches, per_step, dict(
+        spatial_fused_forward_ms=fwd_ms, spatial_pgd_step_ms=step_ms,
+        spatial_peak_memory_gib=peak_gib, partial_eval_ms=eval_ms, spatial_loss_trace=trace,
+        spatial_final_loss=final_loss, partial_metrics=metrics,
+        spatial_partial_vs_batch1=rel), (cfg, inputs, target, gen)
+
+
+def time_blender(torch, card, pipe, reps=5):
+    """One full-width blender forward + backward (5 internal nodes x 26 style
+    layers, batch 1, the pipeline's compute dtype): host ms until the calls
+    return and wall ms after a synchronize (host clock), the stream's ms
+    between two CUDA events; then device busy ms and launches from the
+    profiler."""
+    blender = pipe.drawer.blender
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dt = pipe.policy.compute_dtype
+    roles = [tuple(torch.randn((1, d), generator=gen, device="cuda").to(dt).requires_grad_(True)
+                   for d in pipe.generator.style_input_dims()) for _ in range(SPATIAL_N)]
+    s_dict = {p: roles[i % SPATIAL_N] for i, p in enumerate(pipe.drawer.parts)}
+    leaves = [t for r in roles for t in r]
+    grad_out = [torch.ones_like(o) for o in blender(s_dict)]
+
+    def run():
+        torch.autograd.grad(blender(s_dict), leaves, grad_outputs=grad_out)
+
+    run()
+    torch.cuda.synchronize()
+    host, wall, stream = [], [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        stream.append(start.elapsed_time(end))
+    log(f"  blender forward + backward [{card}]: host {min(host):.3f}-{max(host):.3f} ms, "
+        f"wall {min(wall):.3f}-{max(wall):.3f} ms, CUDA events {min(stream):.3f}-"
+        f"{max(stream):.3f} ms ({reps} runs)")
+    prof = profile_step(torch, run, step_ms=min(wall), what="blender wall ms")
+    return dict(host_ms=host, wall_ms=wall, event_ms=stream, profile=prof)
+
+
 # substrings of the profiler's kernel names -> phase 6/6b's groups (the first
 # that matches); the styled and plain instantiations of the shared conv
 # kernels, and their fp32 (CUDA cores) and bf16 (tensor cores) routes, apart
@@ -910,20 +1131,22 @@ def profile_step(torch, run, *, step_ms, what):
     if busy == 0:
         log("  the profiler saw no device time (not measured)")
         return dict(wall_ms=wall_ms, device_ms=None)
+    launches = sum(c for key, _, c in rows if not key.startswith(("Memcpy", "Memset")))
     groups: dict = {}
     for key, ms, _ in rows:
         group = next((g for pat, g in KERNEL_NAMES if pat in key), "other kernels")
         groups[group] = groups.get(group, 0.0) + ms
     log(f"  step wall {wall_ms:.3f} ms with the profiler on, device busy {busy:.3f} ms: "
         f"idle share {1 - busy / wall_ms:.3f} of the profiled step, "
-        f"{1 - busy / step_ms:.3f} of the unprofiled {what} {step_ms:.3f}")
+        f"{1 - busy / step_ms:.3f} of the unprofiled {what} {step_ms:.3f}; "
+        f"{launches} kernel launches")
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {g:20s} {ms:9.3f} ms  {ms / busy:6.1%}")
     log("  top kernels:")
     for key, ms, count in rows[:12]:
         log(f"    {ms:9.3f} ms  x{count:<4d} {key[:110]}")
     return dict(wall_ms=wall_ms, device_ms=busy, idle_share=1 - busy / step_ms,
-                groups=groups,
+                kernel_launches=launches, groups=groups,
                 top=[dict(kernel=k, ms=ms, count=c) for k, ms, c in rows[:40]])
 
 
@@ -997,6 +1220,11 @@ def main() -> None:
         torch, card, attack_args[0])
     main_numbers.update(wb_numbers)
 
+    log("== 5c. main path: FFHQ 1024^2 spatial-fusion attack and partial evaluation, N=5, "
+        "full width")
+    sp_launches, sp_per_step, sp_numbers, sp_args = run_spatial_path(torch, card, attack_args[0])
+    main_numbers.update(sp_numbers)
+
     from tpufusion_torch.attacks.fusion_attack import make_fusion_attack
 
     pipe, cfg, inputs, target, gen = attack_args
@@ -1008,6 +1236,14 @@ def main() -> None:
     log("== 6b. where the time goes: one white-box step under torch.profiler")
     wb_profile = profile_step(torch, wb_step, step_ms=main_numbers["whitebox_step_ms"],
                               what="whitebox_step_ms")
+    log("== 6c. where the time goes: one spatial PGD step under torch.profiler; the blender")
+    sp_cfg, sp_inputs, sp_target, sp_gen = sp_args
+    sp_step = make_fusion_attack(pipe, dataclasses.replace(
+        sp_cfg, pgd=dataclasses.replace(sp_cfg.pgd, steps=1)))
+    sp_profile = profile_step(torch, lambda: sp_step(sp_inputs, sp_target, sp_gen),
+                              step_ms=main_numbers["spatial_pgd_step_ms"],
+                              what="spatial_pgd_step_ms")
+    sp_profile["blender"] = time_blender(torch, card, pipe)
 
     # after the main paths, so that a training-style backward's allocations
     # and cuDNN plans leave their times and peak memories as they were
@@ -1015,12 +1251,14 @@ def main() -> None:
     chain = check_weight_grad_chain(torch)
 
     kernels = summarize(records, {"pgd": (launches, per_step),
-                                  "whitebox": (wb_launches, wb_per_step)})
+                                  "whitebox": (wb_launches, wb_per_step),
+                                  "spatial": (sp_launches, sp_per_step)})
     out_dir = os.path.join(HERE, "runs", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
         json.dump(dict(card=card, records=records, kernels=kernels, main=main_numbers,
                        profile=profile, whitebox_profile=wb_profile,
+                       spatial_profile=sp_profile,
                        weight_grad_chain=chain), f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -161,11 +161,13 @@ def test_vgg_objective_matches_jax(pipelines):
 
 
 def test_unported_modes_name_their_roadmap_item(pipelines):
-    _, tp, _, _, _, _ = pipelines
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_image_fn(tp, "spatial")
-    # the 'vgg' objective is ported: it builds and runs
-    attack = make_fusion_attack(tp, FusionAttackConfig(objective="vgg"))
+    """Every mode and objective is ported: spatial fusion builds and asks
+    for the dataset's role count (ffhq: 5, these are 2 inputs); unknown
+    modes and objectives raise."""
+    _, tp, _, x, _, _ = pipelines
+    with pytest.raises(ValueError, match="needs 5 latents, got 2"):
+        make_fused_image_fn(tp, "spatial")(torch.from_numpy(x))
+    attack = make_fusion_attack(tp, FusionAttackConfig(mode="spatial", objective="vgg"))
     assert callable(attack)
     with pytest.raises(ValueError):
         make_fused_image_fn(tp, "blend")

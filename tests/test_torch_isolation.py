@@ -61,20 +61,39 @@ def test_sources_import_no_jax_and_no_tpufusion(path):
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
+    import numpy as np
+
+    from tpufusion_torch import eval as ev
     from tpufusion_torch.core.dtypes import resolve_device
     from tpufusion_torch.fusion.drawer import FusionDrawer
     from tpufusion_torch.models.e4e import Encoder4Editing
+    from tpufusion_torch.models.fusion_hierarchy import HierarchyBlender
     from tpufusion_torch.models.stylegan2 import Generator
     from tpufusion_torch.models.vgg16 import VGG16
     from tpufusion_torch.pipeline import FusionPipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((1, 8, 8, 3), np.float32)
+    lat = np.zeros((5, 8, 512), np.float32)
+    on_card = types.SimpleNamespace(device=torch.device("cuda"), dataset="ffhq")
     for build in (lambda: FusionPipeline.create("ffhq", size=32, channel_multiplier=1),
                   lambda: FusionDrawer.create("ffhq", size=32, channel_multiplier=1),
                   lambda: Generator(32, channel_multiplier=1),
                   lambda: Encoder4Editing(8, base_channels=16, unit_counts=(1, 1, 1, 1),
                                           input_size=32),
-                  lambda: VGG16()):
+                  lambda: VGG16(),
+                  lambda: HierarchyBlender("ffhq", [512] * 26),
+                  # the eval entry points run arrays on the card unless asked
+                  lambda: ev.mse_per_image(img, img),
+                  lambda: ev.input_noise_mse(img, img),
+                  lambda: ev.ssim(img, img),
+                  lambda: ev.rgb_to_gray(img),
+                  lambda: ev.latent_distance(np.zeros((8, 512)), np.zeros((1, 8, 512))),
+                  # ... and on the device of the drawer or pipeline they are given
+                  lambda: ev.partial_adv_fusion(on_card, lat, lat),
+                  lambda: ev.benign_fusion(on_card, lat),
+                  lambda: ev.fused_image_metrics(types.SimpleNamespace(generator=on_card),
+                                                 img, img)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     with pytest.raises(RuntimeError):

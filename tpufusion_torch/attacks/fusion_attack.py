@@ -1,9 +1,8 @@
 """Fusion-aware PGD/FGSM — attacks that differentiate through the whole fusion
-pipeline (port of ``tpufusion/attacks/fusion_attack.py``, arithmetic mode and
-pixel objective):
+pipeline (port of ``tpufusion/attacks/fusion_attack.py``):
 
-    adv inputs (N,S,S,3) -> pool -> e4e -> mean W+ -> StyleGAN2 synthesis
-    -> fused image -> pixel MSE
+    adv inputs (N,S,S,3) -> pool -> e4e -> [mean W+ | hierarchy blend]
+    -> StyleGAN2 synthesis -> fused image -> pixel MSE or VGG objective
 
 The PGD loop perturbs all N inputs jointly under one L-inf ball.
 """
@@ -13,26 +12,25 @@ from __future__ import annotations
 import dataclasses
 
 from tpufusion_torch.attacks.pgd import PGDConfig, make_pgd
+from tpufusion_torch.fusion.spatial import spatial_fused
 from tpufusion_torch.models.vgg16 import perceptual_distance
 from tpufusion_torch.pipeline import FusionPipeline, latents_with
-
-_SPATIAL = ("spatial fusion is not ported yet: ROADMAP.md queue A, item "
-            "'Spatial fusion' (fusion_hierarchy, fusion/spatial.py and the "
-            "spatial mode of attacks/fusion_attack.py)")
 
 
 def make_fused_image_fn(pipeline: FusionPipeline, mode: str = "arithmetic"):
     """Differentiable ``fused(inputs) -> (1, S, S, 3)`` through the full
-    pipeline. Only ``mode='arithmetic'`` (mean W+) is ported."""
-    if mode == "spatial":
-        raise NotImplementedError(_SPATIAL)
-    if mode != "arithmetic":
+    pipeline. ``mode``: 'arithmetic' (mean W+) or 'spatial' (hierarchy blend
+    with the dataset's role map: the inputs are the roles, in order, and
+    their number must be the dataset's)."""
+    if mode not in ("arithmetic", "spatial"):
         raise ValueError(f"mode must be 'arithmetic' or 'spatial', got {mode!r}")
     gen = pipeline.generator
 
     def fused(inputs):
         codes = latents_with(pipeline.encoder, pipeline.latent_avg, pipeline.pool_factor,
                              pipeline.is_cars, inputs)
+        if mode == "spatial":
+            return spatial_fused(pipeline.drawer, codes[None])[0]
         avg = codes.mean(dim=0, keepdim=True)
         return gen(avg, input_is_latent=True).image
 
@@ -41,7 +39,7 @@ def make_fused_image_fn(pipeline: FusionPipeline, mode: str = "arithmetic"):
 
 @dataclasses.dataclass(frozen=True)
 class FusionAttackConfig:
-    mode: str = "arithmetic"  # 'spatial' is not ported yet
+    mode: str = "arithmetic"  # or 'spatial'
     objective: str = "pixel"  # 'pixel' (MSE) or 'vgg' (perceptual taps)
     targeted: bool = True     # pull the fused image toward `target`; False: away
     pgd: PGDConfig = PGDConfig(eps=8 / 255 * 2, alpha=0.01 * 2, steps=40)

@@ -1,0 +1,18 @@
+from tpufusion_torch.eval.metrics import (
+    fused_image_metrics,
+    input_noise_mse,
+    latent_distance,
+    mse_per_image,
+    perceptual_distance_per_image,
+    rgb_to_gray,
+    ssim,
+)
+from tpufusion_torch.eval.partial import (
+    benign_fusion,
+    partial_adv_fusion,
+    partial_latent_variants,
+)
+
+__all__ = ["benign_fusion", "fused_image_metrics", "input_noise_mse", "latent_distance",
+           "mse_per_image", "partial_adv_fusion", "partial_latent_variants",
+           "perceptual_distance_per_image", "rgb_to_gray", "ssim"]

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpufusion_torch.models.fusion_hierarchy import fusion_net_state_from_jax
 from tpufusion_torch.ops.upfirdn2d import _kernel_2d
 
 
@@ -148,6 +149,14 @@ def vgg_state_from_jax(variables_np: dict) -> dict:
     return {f"{name}.{k}": v
             for name, layer in variables_np["params"].items()
             for k, v in (("weight", _conv(layer["kernel"])), ("bias", np.asarray(layer["bias"])))}
+
+
+def blender_state_from_jax(blend_params_np: dict) -> dict:
+    """JAX ``HierarchyBlender`` params ``{node: {"params": {"gate{i}_fc{1,2}":
+    {kernel, bias}}}}`` -> the port blender's state dict
+    (``nets.{node}.gate{i}_fc{1,2}.{weight (out, in), bias}``)."""
+    return {f"nets.{node}.{k}": v for node, p in blend_params_np.items()
+            for k, v in fusion_net_state_from_jax(p).items()}
 
 
 def state_dict_to_torch(sd: dict, device=None) -> dict:

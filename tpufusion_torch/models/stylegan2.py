@@ -257,6 +257,10 @@ class Generator(nn.Module):
             res *= 2
         return plan
 
+    def style_input_dims(self):
+        """Width of each style vector (the input channels of its conv)."""
+        return [cin for cin, _, _ in self.conv_plan()]
+
     def w_index_plan(self):
         """Which W+ row feeds each modulated conv (rosinality layer wiring)."""
         idx = [0, 1]

@@ -1,7 +1,7 @@
 """FusionPipeline — the model bundle the attacks work against (port of
 ``tpufusion/pipeline.py``): an e4e encoder + StyleGAN2 decoder pair, the
-drawer wrapping the same decoder, the VGG16 perceptual taps and
-``latent_avg``.
+drawer wrapping the same decoder and the fusion hierarchy, the VGG16
+perceptual taps and ``latent_avg``.
 """
 
 from __future__ import annotations
@@ -47,15 +47,17 @@ class FusionPipeline:
                device=None, seed: int = 0) -> "FusionPipeline":
         """Build the bundle with weights drawn from ``seed`` on ``device``
         (``cuda`` unless given). Every weight is frozen: the attacks
-        differentiate with respect to the pixels only. The VGG weights are
-        drawn after the generator's and the encoder's, so a seed gives the
-        same generator and encoder with or without them."""
+        differentiate with respect to the pixels only. The draws go
+        generator, mean latent, encoder, VGG, then the fusion nets, so a seed
+        gives the same generator, encoder and VGG with or without the later
+        ones."""
         device = resolve_device(device)
         policy = policy or default_policy(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         drawer = FusionDrawer.create(
             dataset, size=size, channel_multiplier=channel_multiplier, policy=policy,
-            mean_latent_samples=mean_latent_samples, device=device, generator=gen)
+            mean_latent_samples=mean_latent_samples, device=device, generator=gen,
+            with_blender=False)
         n_styles = drawer.generator.n_latent
         encoder = Encoder4Editing(
             n_styles, base_channels=encoder_base_channels, unit_counts=encoder_units,
@@ -63,6 +65,7 @@ class FusionPipeline:
         encoder.requires_grad_(False)
         vgg = VGG16(policy=policy, device=device, generator=gen)
         vgg.requires_grad_(False)
+        drawer.draw_blender(gen)
         latent_avg = drawer.mean_latent.repeat(n_styles, 1)
         return cls(dataset=dataset, drawer=drawer, encoder=encoder, vgg=vgg,
                    latent_avg=latent_avg, policy=policy,
