@@ -31,7 +31,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    white-box attack whose pixels are held, on the card and on the CPU, to a
    float64 CPU run with a per-pixel margin read from that run's own change
    under a 1e-6 move of the inputs; then the spatial fused image of 5
-   inputs and its pixel and 'vgg' gradients;
+   inputs and its pixel and 'vgg' gradients; a patch step (max_count 2,
+   with and without the reconstruction terms), the LPIPS distance and 2
+   iterations of each legacy optimize variant;
 5. the fusion main path at full width: the FFHQ 1024^2 config-f generator +
    e4e IR-SE-50 + VGG16 pipeline (seeded random weights), one fused-image
    forward, FGSM, and PGD with the default eps/alpha for 5 steps after a
@@ -45,9 +47,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    alpha): three fused forwards, FGSM and 5 PGD steps, then the
    partial-fusion evaluation (both modes, the N+1 variants as one batch 6
    synthesis) and its metrics, with the launch counts read around it all;
-6. device time by kernel for one PGD step, one white-box step (6b) and one
-   spatial PGD step (6c), from torch.profiler, with the step's kernel
-   launches; 6c also times one full-width blender forward + backward;
+5d. patch training, the baselines, the hybrid splice and the legacy
+   optimize at full width on the same pipeline (N = 5 inputs plus a
+   target): a square patch trained on 2 images x 5 inner steps and a circle
+   patch on 1 x 2, the square one applied to the inputs and fused (both
+   modes, the partial fusions too), ``white_box_patch`` (3 iterations
+   toward per-image paste targets), blur at the runner's k = 409, dp noise,
+   paste and the out-of-domain inputs, the hybrid splice of blur and dp,
+   all fused; both legacy variants on one image, 3 iterations; the launch
+   counts read around it all;
+6. device time by kernel for one PGD step, one white-box step (6b), one
+   spatial PGD step (6c) and one patch batch (6d), from torch.profiler, with
+   the step's kernel launches; 6c also times one full-width blender
+   forward + backward;
 7. the kernels line (JSON, one object) and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -63,6 +75,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -133,7 +146,9 @@ CONV_RAGGED = [(2, 37, 53, 64), (1, 33, 70, 32)]
 # tiles are a large share of the sum (a single pixel: 8 of 9 taps read only
 # padding; a plane narrower than a k-step; one row and column past a tile)
 WGRAD_RAGGED = [(1, 1, 1, 32), (1, 3, 37, 64), (2, 17, 16, 32), (3, 37, 53, 64)]
-ADAM_SHAPES = {(5, 1024, 1024, 3): "whitebox", (3, 37, 53, 3): None}
+# the white-box batch and the legacy optimize's one image (phase 5d)
+ADAM_SHAPES = {(5, 1024, 1024, 3): "whitebox", (1, 1024, 1024, 3): "patch",
+               (3, 37, 53, 3): None}
 PGD_SHAPES = {(2, 1024, 1024, 3): "pgd", (5, 1024, 1024, 3): "spatial", (3, 37, 53, 3): None}
 TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # on max|err| / max(1, max|plain|)
 # The weight grad returns float32 sums and rounds nothing to bf16. A product
@@ -387,7 +402,8 @@ def _numbers(rs, path="pgd"):
 def summarize(records, runs):
     """One entry per kernel source: launches on the main paths and
     ``_numbers``. ``runs`` maps each main path ("pgd", "whitebox",
-    "spatial") to its (launch counts, launches per step); ``launches`` is
+    "spatial", "patch") to its (launch counts, launches per step; per inner
+    step on the patch path); ``launches`` is
     their sum. The numbers at the top of an entry are those of the kernel's
     home path (the fusion PGD path, or the white-box path for fused_adam);
     another path's shapes, where it has its own, are under its name (the
@@ -708,12 +724,104 @@ def check_small_reference(torch):
             fail(f"32^2 white-box adv ({name}) leaves the float64 run's margin by "
                  f"{held['excess']}")
     check_fusion_card_vs_cpu(torch, cpu, gpu, *small_spatial_inputs(torch), "spatial")
+    check_patch_lpips_legacy(torch, cpu, gpu, x, t)
     torch.backends.cudnn.allow_tf32 = True
+
+
+SMALL_PATCH_DRAW = (1, (5, 7))  # one quarter turn, top-left corner (5, 7)
+SMALL_LEGACY_ITERS = 2
+# the patch step with the reconstruction terms on: the decoder and the VGG
+# taps of the reconstruction enter the loss (styled_conv and conv3x3 on the
+# card)
+PATCH_REC_WEIGHTS = dict(w_img_rec_target=1.0, w_lpips_rec_target=1.0)
+
+
+def _rel(torch, got, want):
+    """max|got - want| over max(1, max|want|), both on the CPU; inf when
+    ``got`` is not finite."""
+    return _err(torch, got.cpu(), want)[1]
+
+
+def check_patch_lpips_legacy(torch, cpu, gpu, x, t):
+    """Phase 4's patch, LPIPS and legacy-optimize checks, card against CPU
+    in float32 with the same weights. Limits, as for the fused image and the
+    gradients above: a forward (loss traces, the LPIPS distance) to 2e-3 of
+    max(1, max|cpu|); the patch's move after 2 raw gradient steps, which is
+    the sum of 2 gradients, to 1e-2 of its largest entry. The legacy run's
+    pixels after 2 Adam steps: their mean difference to 1e-5 and each to 0.2
+    lr where the first step's |g| > 1e-6, as the white-box run's (Adam's
+    first step is lr * sign(g) there; the second divides by each pixel's own
+    gradient history)."""
+    from tpufusion_torch.attacks.patch import (
+        PatchConfig, init_patch_square, make_patch_attack_step)
+    from tpufusion_torch.attacks.whitebox import LegacyOptimizeConfig, make_legacy_optimize
+    from tpufusion_torch.core.dtypes import Policy
+    from tpufusion_torch.models.lpips import LPIPS
+
+    img = x[:1]
+    patch0 = init_patch_square(32, 0.1, torch.Generator().manual_seed(11))
+    for label, weights in (("default weights", {}), ("reconstruction terms", PATCH_REC_WEIGHTS)):
+        cfg = PatchConfig(max_count=2, **weights)
+        (p_cpu, tr_cpu), (p_gpu, tr_gpu) = (
+            make_patch_attack_step(p, cfg, t.to(dev))(img.to(dev), patch0.to(dev),
+                                                      draw=SMALL_PATCH_DRAW)
+            for p, dev in ((cpu, "cpu"), (gpu, "cuda")))
+        rel_tr = _rel(torch, tr_gpu, tr_cpu)
+        move_cpu, move_gpu = p_cpu - patch0, p_gpu.cpu() - patch0
+        rel_mv = ((move_gpu - move_cpu).abs().max() / move_cpu.abs().max()).item()
+        log(f"  small reference: patch step ({label}, max_count 2) card vs CPU: loss trace "
+            f"rel err {rel_tr:.3e} (tol 2e-3), patch move rel err {rel_mv:.3e} (tol 1e-2)")
+        if not (_within(rel_tr, rel_tr, 2e-3) and _within(rel_mv, rel_mv, 1e-2)):
+            fail(f"32^2 patch step ({label}) on the card disagrees with the CPU: trace "
+                 f"{rel_tr}, move {rel_mv}")
+
+    lp_cpu = LPIPS(device="cpu", policy=Policy(), generator=torch.Generator().manual_seed(12))
+    lp_gpu = LPIPS(device="cuda", policy=Policy())
+    lp_gpu.load_state_dict(lp_cpu.state_dict())
+    with torch.no_grad():
+        rel = _rel(torch, lp_gpu(x.cuda(), t.cuda()), lp_cpu(x, t))
+    log(f"  small reference: LPIPS distance card vs CPU rel err {rel:.3e} (tol 2e-3)")
+    if not _within(rel, rel, 2e-3):
+        fail(f"32^2 LPIPS distance on the card disagrees with the CPU: {rel}")
+
+    lr = SMALL_WB_LR
+    for variant in ("optimize", "optimize_copy"):
+        cfg = LegacyOptimizeConfig(lr=lr, n_iters=SMALL_LEGACY_ITERS, variant=variant,
+                                   snapshot_every=0)
+        (a_cpu, tr_cpu, _), (a_gpu, tr_gpu, _) = (
+            make_legacy_optimize(p, lp, cfg)(img.to(dev), t.to(dev))
+            for p, lp, dev in ((cpu, lp_cpu, "cpu"), (gpu, lp_gpu, "cuda")))
+        rel = _rel(torch, tr_gpu["total"], tr_cpu["total"])
+        g = _legacy_first_grad(torch, cpu, lp_cpu, variant, img, t)
+        d = (a_gpu.cpu() - a_cpu).abs()[g.abs() > 1e-6]
+        log(f"  small reference: legacy {variant}, {SMALL_LEGACY_ITERS} iters, card vs CPU: "
+            f"total trace rel err {rel:.3e} (tol 2e-3); pixels where |g| > 1e-6 max err "
+            f"{d.max().item():.3e} (tol {0.2 * lr:.0e}), mean {d.mean().item():.3e} (tol 1e-5)")
+        if not (_within(rel, rel, 2e-3) and d.max().item() <= 0.2 * lr
+                and d.mean().item() <= 1e-5):
+            fail(f"32^2 legacy {variant} on the card disagrees with the CPU: trace {rel}, "
+                 f"pixels max {d.max().item()}, mean {d.mean().item()}")
+
+
+def _legacy_first_grad(torch, pipe, lp, variant, img, t):
+    """The legacy loss's input gradient at the first step (x = img)."""
+    from tpufusion_torch.attacks.whitebox import _make_legacy_loss
+
+    ref_fn, loss_fn = _make_legacy_loss(pipe, lp, variant)
+    x = img.clone().requires_grad_(True)
+    total, _ = loss_fn(x, ref_fn(img, t))
+    return torch.autograd.grad(total, x)[0]
 
 
 # ---------------------------------------------------------------------------
 # phase 5: the main path at full width
 # ---------------------------------------------------------------------------
+
+# the full-width FFHQ pipeline of phases 5-6: config-f generator, e4e
+# IR-SE-50, seeded random weights
+FULL_PIPELINE = dict(size=1024, channel_multiplier=2, encoder_base_channels=64,
+                     encoder_units=(3, 4, 14, 3), encoder_input_size=256, seed=0)
+
 
 def run_main_path(torch, card):
     from tpufusion_torch import ops
@@ -723,9 +831,7 @@ def run_main_path(torch, card):
     from tpufusion_torch.pipeline import FusionPipeline
 
     t0 = time.perf_counter()
-    pipe = FusionPipeline.create(
-        "ffhq", size=1024, channel_multiplier=2, encoder_base_channels=64,
-        encoder_units=(3, 4, 14, 3), encoder_input_size=256, device="cuda", seed=0)
+    pipe = FusionPipeline.create("ffhq", device="cuda", **FULL_PIPELINE)
     torch.cuda.synchronize()
     log(f"  pipeline built in {time.perf_counter() - t0:.2f} s "
         f"(config-f 1024^2 generator, e4e IR-SE-50, mean_latent over 4096 z)")
@@ -1024,6 +1130,304 @@ def run_spatial_path(torch, card, pipe):
         spatial_partial_vs_batch1=rel), (cfg, inputs, target, gen)
 
 
+# ---------------------------------------------------------------------------
+# phase 5d: patch training, the baselines, the hybrid splice and the legacy
+# optimize at full width
+# ---------------------------------------------------------------------------
+
+PATCH_N = 5  # fusion inputs, the ffhq roles
+PATCH_IMAGES, PATCH_COUNT = 2, 5  # of the reference's 2000 images x 50 inner steps
+CIRCLE_COUNT = 2
+PASTE_TIMES = 3  # the runner's --paste_times
+BASELINE_SCALE = 0.4  # the runner's --scale: the blur's k and dp_noise's scale
+WBP_ITERS = 3  # white_box_patch iterations, lr 1e-4 (configs/ffhq_whitebox.json)
+LEGACY_ITERS, LEGACY_EVERY = 3, 2
+DP_MEAN_TOL = 0.02  # mean |noise| within 2% of the scale (E|Laplace(b)| = b)
+PATCH_PATH_KERNELS = ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "fused_adam")
+
+
+def _fuse_ok(torch, fused, n=1):
+    return tuple(fused.shape) == (n, 1024, 1024, 3) and bool(torch.isfinite(fused).all())
+
+
+def patch_launch_failures(launches):
+    """What phase 5d's launch counts fall short of: styled_conv, the conv3x3
+    forward and input grad and fused_adam launched, the weight grad not
+    (the weights are frozen)."""
+    out = [f"phase 5d launched {k} no time" for k in PATCH_PATH_KERNELS if launches[k] <= 0]
+    if launches["conv3x3_wgrad"] != 0:
+        out.append(f"phase 5d launched the weight grad {launches['conv3x3_wgrad']} times, "
+                   f"expected 0")
+    return out
+
+
+def _check_patch_batch(torch, what, img, patch, trace, descent):
+    """The patch after a batch lies in the batch image's [min, max]; with
+    ``descent`` the batch's loss fell from its first inner step to its
+    last."""
+    lo, hi = img.min().item(), img.max().item()
+    trace = trace.float().cpu()
+    if not torch.isfinite(trace).all() or (descent and not trace[-1] < trace[0]):
+        fail(f"{what}: the loss did not fall over {PATCH_COUNT} inner steps: {trace.tolist()}")
+    if not (patch.min().item() >= lo and patch.max().item() <= hi):
+        fail(f"{what}: the patch [{patch.min().item()}, {patch.max().item()}] leaves the "
+             f"image's range [{lo}, {hi}]")
+
+
+def _float32_patch_descent(torch, pipe, cfg, train, patch0, draws):
+    """The square patch batches of phase 5d (a) again, with a float32 copy
+    of the full-width encoder and TF32 off: each batch's loss must fall.
+    Returns the loss traces."""
+    from tpufusion_torch.attacks.patch import make_patch_attack_step
+    from tpufusion_torch.core.dtypes import Policy
+    from tpufusion_torch.models.e4e import Encoder4Editing
+
+    enc = Encoder4Editing(pipe.generator.n_latent,
+                          base_channels=FULL_PIPELINE["encoder_base_channels"],
+                          unit_counts=FULL_PIPELINE["encoder_units"],
+                          input_size=pipe.encoder_input_size, policy=Policy(), device="cuda")
+    enc.load_state_dict(pipe.encoder.state_dict())
+    enc.requires_grad_(False)
+    step = make_patch_attack_step(dataclasses.replace(pipe, encoder=enc, policy=Policy()), cfg)
+    torch.backends.cudnn.allow_tf32 = False
+    patch, traces = patch0, []
+    for i, draw in enumerate(draws):
+        img = train[i : i + 1]
+        patch, trace = step(img, patch, draw=draw)
+        traces.append(trace.float().cpu().tolist())
+        _check_patch_batch(torch, f"patch batch {i} (float32)", img, patch, trace, descent=True)
+    torch.backends.cudnn.allow_tf32 = True
+    return traces
+
+
+def run_patch_path(torch, card, pipe):
+    """Phase 5d on the pipeline of phase 5 (the launch counts set to 0 just
+    before, read just after): (a) square patch training, 2 images x 5 inner
+    steps, then a circle patch, 1 image x 2; (b) the trained square patch on
+    5 inputs, their arithmetic and spatial fusions and the partial fusions
+    of both modes; (c) ``white_box_patch``: ``run_whitebox`` toward the
+    per-image paste targets; (d) the baselines, each fused arithmetically;
+    (e) the hybrid splice of the blur and dp batches; (f) both legacy
+    variants on one image. Returns the launch counts, the launches per patch
+    inner step, the numbers and a patch batch for phase 6d."""
+    from tpufusion_torch import ops
+    from tpufusion_torch.attacks import (
+        PRESET_ATTACK_MAIN, LegacyOptimizeConfig, PatchConfig, WhiteboxConfig, apply_patch,
+        canonical_canvas, dp_noise, gaussian_blur_noise, init_patch_square,
+        make_fused_image_fn, make_legacy_optimize, make_patch_attack_step, out_domain_more,
+        out_domain_single, paste_patch, run_whitebox, splice_hybrid, train_patch)
+    from tpufusion_torch.core.imaging import resize_bilinear
+    from tpufusion_torch.eval import benign_fusion, partial_adv_fusion
+    from tpufusion_torch.models.lpips import LPIPS
+    from tpufusion_torch.ops.adam_update import B1, B2
+
+    size = pipe.image_size
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    inputs = torch.rand((PATCH_N, size, size, 3), generator=gen, device="cuda") * 2 - 1
+    target = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
+    train = torch.rand((PATCH_IMAGES, size, size, 3), generator=gen, device="cuda") * 2 - 1
+    fused_fn = make_fused_image_fn(pipe)
+    cfg = PatchConfig(patch_type="square", patch_frac=0.1, max_count=PATCH_COUNT)
+    step = make_patch_attack_step(pipe, cfg)
+    # warm-up: one inner step (cuDNN plans of the encoder's backward)
+    make_patch_attack_step(pipe, dataclasses.replace(cfg, max_count=1))(
+        train[:1], init_patch_square(size, cfg.patch_frac, gen), gen)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) square patch training: train_patch's loop, with the patch read
+    # after each batch; the placements are drawn first, so that the float32
+    # run below trains on the same batches
+    patch0 = init_patch_square(size, cfg.patch_frac, gen)
+    side = patch0.shape[0]
+    draws = [(int(torch.randint(0, 4, (), generator=gen, device="cuda")),
+              tuple(torch.randint(0, size - side + 1, (2,), generator=gen,
+                                  device="cuda").tolist())) for _ in range(PATCH_IMAGES)]
+    inner_ms, traces = [], []
+    torch.cuda.reset_peak_memory_stats()
+    patch = patch0
+    for i in range(PATCH_IMAGES):
+        img = train[i : i + 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        patch, trace = step(img, patch, draw=draws[i])
+        torch.cuda.synchronize()
+        inner_ms.append((time.perf_counter() - t0) * 1e3 / PATCH_COUNT)
+        traces.append(trace.float().cpu().tolist())
+        _check_patch_batch(torch, f"patch batch {i} (bf16)", img, patch, trace, descent=False)
+    patch_counts = ops.launch_counts()
+    per_inner = {k: v / (PATCH_IMAGES * PATCH_COUNT) for k, v in patch_counts.items()}
+    out.update(patch_inner_step_ms=statistics.median(inner_ms),
+               patch_inner_step_ms_per_batch=inner_ms, patch_loss_traces=traces,
+               patch_peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               patch_side=side)
+    log(f"  patch_inner_step_ms {out['patch_inner_step_ms']:.3f} [{card}] (square {side}^2, "
+        f"1024^2, bf16, median over {PATCH_IMAGES} batches of {PATCH_COUNT} inner steps after "
+        f"a warm-up step; per batch {[round(v, 3) for v in inner_ms]})")
+    log(f"  patch_peak_memory_gib {out['patch_peak_memory_gib']:.3f} [{card}]")
+    log(f"  bf16 patch loss traces {traces} (patch within each image's range)")
+    # The reference's raw step (patch -= grad) moves a pixel by ~1e-6 here,
+    # and the loss by ~3e-7 a step: below bf16's rounding of the encoder's
+    # input, so the bf16 traces above move by rounding. The descent is held
+    # on the same batches with the encoder in float32 (TF32 off).
+    traces32 = _float32_patch_descent(torch, pipe, cfg, train, patch0, draws)
+    out["patch_loss_traces_float32"] = traces32
+    log(f"  float32 patch loss traces {traces32} (each falls; patch within each image's range)")
+    circle_cfg = dataclasses.replace(cfg, patch_type="circle", max_count=CIRCLE_COUNT)
+    c_canvas, c_mask = train_patch(pipe, [train[:1]], gen, circle_cfg)
+    c_side = int(c_mask[:, :, 0].any(dim=0).sum().item())
+    outside = c_mask == 0
+    if not (bool((c_canvas[outside] == 0).all()) and set(c_mask.unique().tolist()) <= {0.0, 1.0}
+            and bool(torch.isfinite(c_canvas).all())):
+        fail("circle patch: canvas non-zero outside its mask, or a mask that is not binary")
+    log(f"  circle patch (bounding square {c_side}^2, {CIRCLE_COUNT} inner steps): mask "
+        f"{int(c_mask[:, :, 0].sum().item())} pixels, canvas zero outside it")
+
+    # (b) the trained square patch on the fusion inputs
+    canvas, mask = canonical_canvas(patch, size, "square")
+    patched = apply_patch(inputs, canvas, mask)
+    off = (mask == 0).expand_as(patched)
+    if not torch.equal(patched[off], inputs[off]):
+        fail("apply_patch changed pixels outside the mask")
+    with torch.no_grad():
+        clean, adv_lat = pipe.get_latents(inputs), pipe.get_latents(patched)
+        for mode in ("arithmetic", "spatial"):
+            fz = make_fused_image_fn(pipe, mode)(patched)
+            part = partial_adv_fusion(pipe.drawer, clean, adv_lat, mode)
+            benign = benign_fusion(pipe.drawer, clean, mode)[0]
+            if not (_fuse_ok(torch, fz) and _fuse_ok(torch, part, PATCH_N + 1)
+                    and _fuse_ok(torch, benign)):
+                fail(f"patched inputs: a {mode} fusion is non-finite or misshapen")
+    log(f"  apply_patch: pixels outside the mask bit-identical; arithmetic and spatial fusions "
+        f"and partial fusions (batch {PATCH_N + 1}) of the patched inputs finite")
+
+    # (c) white_box_patch: per-image paste targets into run_whitebox
+    wcfg = WhiteboxConfig(lr=WB_LR, n_iters=WBP_ITERS, weights=PRESET_ATTACK_MAIN)
+    targets = paste_patch(inputs, target, PASTE_TIMES)
+    adam_before = ops.launch_counts()["fused_adam"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adv, trace = run_whitebox(pipe, inputs, targets, wcfg)
+    torch.cuda.synchronize()
+    out["whitebox_patch_step_ms"] = (time.perf_counter() - t0) * 1e3 / WBP_ITERS
+    out["whitebox_patch_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    adam_launches = ops.launch_counts()["fused_adam"] - adam_before
+    totals = trace["total"].float().cpu()
+    moved = (adv - inputs).abs().max().item()
+    adam_bound = WBP_ITERS * WB_LR * (1 - B1) / math.sqrt(1 - B2)
+    if not bool((totals[:, -1] < totals[:, 0]).all()):
+        fail(f"white_box_patch total did not fall for every image: {totals.tolist()}")
+    if not (torch.isfinite(adv).all() and 0 < moved <= adam_bound + 1e-6):
+        fail(f"white_box_patch pixels moved {moved}, expected in (0, {adam_bound}]")
+    if adam_launches != WBP_ITERS:
+        fail(f"{WBP_ITERS} white_box_patch iterations launched fused_adam {adam_launches} times")
+    out["whitebox_patch_total_trace"] = totals.tolist()
+    log(f"  whitebox_patch_step_ms {out['whitebox_patch_step_ms']:.3f} [{card}] (N={PATCH_N}, "
+        f"paste targets x{PASTE_TIMES}, {WBP_ITERS} iterations, lr {WB_LR})")
+    log(f"  whitebox_patch_peak_memory_gib {out['whitebox_patch_peak_memory_gib']:.3f} [{card}]")
+    log(f"  white_box_patch totals {totals.tolist()} fall for every image; pixels moved at most "
+        f"{moved:.6e} (Adam bound {adam_bound:.6e}); fused_adam launches {adam_launches}")
+
+    # (d) the baselines, each fused arithmetically
+    k = max(int(BASELINE_SCALE * size) | 1, 3)  # the runner's odd kernel
+    gaussian_blur_noise(inputs, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blurred = gaussian_blur_noise(inputs, k)
+    torch.cuda.synchronize()
+    out["blur_ms"] = (time.perf_counter() - t0) * 1e3
+    noised = dp_noise(inputs, gen, BASELINE_SCALE)
+    noise = (noised - inputs).abs().mean().item()
+    if not abs(noise - BASELINE_SCALE) <= DP_MEAN_TOL * BASELINE_SCALE:
+        fail(f"dp_noise: mean |noise| {noise} is not within {DP_MEAN_TOL:.0%} of "
+             f"{BASELINE_SCALE}")
+    pasted = paste_patch(inputs, target, PASTE_TIMES)
+    ps = size // PASTE_TIMES
+    loc = (size - ps) // 2
+    centre = torch.zeros_like(inputs, dtype=torch.bool)
+    centre[:, loc : loc + ps, loc : loc + ps] = True
+    if not (torch.equal(pasted[:, loc : loc + ps, loc : loc + ps],
+                        resize_bilinear(target, ps, ps).expand(PATCH_N, -1, -1, -1))
+            and torch.equal(pasted[~centre], inputs[~centre])):
+        fail("paste_patch: the centre is not the resized target or the rest moved")
+    more = out_domain_more(inputs, target)
+    singles = [out_domain_single(inputs, target, i) for i in range(PATCH_N)]
+    if not torch.equal(more, target.expand_as(inputs)):
+        fail("out_domain_more: not every input is the target")
+    for i, s in enumerate(singles):
+        keep = torch.arange(PATCH_N, device="cuda") != i
+        if not (torch.equal(s[i], target[0]) and torch.equal(s[keep], inputs[keep])):
+            fail(f"out_domain_single({i}): wrong rows replaced")
+    batches = dict(blur=blurred, dp_noise=noised, paste=pasted, out_domain_more=more,
+                   **{f"out_domain_single_{i}": s for i, s in enumerate(singles)})
+    # (e) the hybrid splice of the blur and dp batches
+    spliced, counts = splice_hybrid([blurred, noised], PATCH_N)
+    if counts != [3, 2] or not (torch.equal(spliced[:3], blurred[:3])
+                                and torch.equal(spliced[3:], noised[3:])):
+        fail(f"splice_hybrid: counts {counts} or rows not as spliced")
+    batches["hybrid"] = spliced
+    with torch.no_grad():
+        for name, b in batches.items():
+            if not (torch.isfinite(b).all() and _fuse_ok(torch, fused_fn(b))):
+                fail(f"baseline {name}: non-finite inputs or fused image")
+    out.update(blur_kernel_size=k, dp_mean_abs_noise=noise, hybrid_counts=counts)
+    log(f"  blur_ms {out['blur_ms']:.3f} [{card}] (k={k}, {PATCH_N}x1024^2x3, two 1-D passes "
+        f"as banded float32 matmuls)")
+    log(f"  dp_noise mean |noise| {noise:.6f} (scale {BASELINE_SCALE}, tol {DP_MEAN_TOL:.0%}); "
+        f"paste centre {ps}^2 = resized target, rest unchanged; out_domain more / single "
+        f"rows as replaced; hybrid counts {counts}; {len(batches)} batches fused, all finite")
+
+    # (f) the legacy optimize, both variants, one image: timed at the
+    # reference's lr (0.01), then its descent held at the white-box lr
+    lp = LPIPS(device="cuda", generator=torch.Generator(device="cuda").manual_seed(7))
+    img = inputs[:1]
+    for variant in ("optimize", "optimize_copy"):
+        lcfg = LegacyOptimizeConfig(n_iters=LEGACY_ITERS, variant=variant,
+                                    snapshot_every=LEGACY_EVERY)
+        make_legacy_optimize(pipe, lp, dataclasses.replace(lcfg, n_iters=1, snapshot_every=0))(
+            img, target)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        adv, trace, frames = make_legacy_optimize(pipe, lp, lcfg)(img, target)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / LEGACY_ITERS
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        terms = {k: v.float().cpu().tolist() for k, v in trace.items()}
+        n_frames = 1 + (LEGACY_ITERS - 1) // LEGACY_EVERY
+        if frames.shape != (n_frames, 1, size, size, 3) or not torch.isfinite(adv).all():
+            fail(f"legacy {variant}: frames {frames.shape}, expected {n_frames}")
+        if not all(math.isfinite(v) for t in terms.values() for v in t):
+            fail(f"legacy {variant}: non-finite terms {terms}")
+        small = dataclasses.replace(lcfg, lr=WB_LR)
+        _, small_trace, small_frames = make_legacy_optimize(pipe, lp, small)(img, target)
+        total = small_trace["total"].float().cpu()
+        if small_frames.shape[0] != n_frames or not total[-1] < total[0]:
+            fail(f"legacy {variant} at lr {WB_LR}: the total did not fall: {total.tolist()}")
+        out[f"legacy_{variant}_step_ms"] = ms
+        out[f"legacy_{variant}_peak_memory_gib"] = peak
+        out[f"legacy_{variant}_terms"] = terms
+        out[f"legacy_{variant}_total_trace_lr{WB_LR}"] = total.tolist()
+        log(f"  legacy_{variant}_step_ms {ms:.3f} [{card}] (1 image, 1024^2, {LEGACY_ITERS} "
+            f"iterations at lr {lcfg.lr}, LPIPS at "
+            f"{size if variant == 'optimize_copy' else pipe.encoder_input_size}^2)")
+        log(f"  legacy_{variant}_peak_memory_gib {peak:.3f} [{card}]")
+        log(f"  legacy {variant}, lr {lcfg.lr}: {frames.shape[0]} frames; terms {terms}")
+        log(f"  legacy {variant}, lr {WB_LR}: totals {total.tolist()} fall")
+
+    launches = ops.launch_counts()
+    out["patch_phase_s"] = time.perf_counter() - t_phase
+    log(f"  launches {launches} (per patch inner step {per_inner}); phase 5d "
+        f"{out['patch_phase_s']:.1f} s [{card}]")
+    short = patch_launch_failures(launches)
+    if short:
+        fail("; ".join(short))
+    return launches, per_inner, out, (step, train[:1], init_patch_square(size, 0.1, gen), gen)
+
+
 def time_blender(torch, card, pipe, reps=5):
     """One full-width blender forward + backward (5 internal nodes x 26 style
     layers, batch 1, the pipeline's compute dtype): host ms until the calls
@@ -1225,6 +1629,11 @@ def main() -> None:
     sp_launches, sp_per_step, sp_numbers, sp_args = run_spatial_path(torch, card, attack_args[0])
     main_numbers.update(sp_numbers)
 
+    log("== 5d. main path: FFHQ 1024^2 patch training, baselines, hybrid splice and legacy "
+        "optimize, N=5, full width")
+    pa_launches, pa_per_step, pa_numbers, pa_batch = run_patch_path(torch, card, attack_args[0])
+    main_numbers.update(pa_numbers)
+
     from tpufusion_torch.attacks.fusion_attack import make_fusion_attack
 
     pipe, cfg, inputs, target, gen = attack_args
@@ -1244,6 +1653,15 @@ def main() -> None:
                               step_ms=main_numbers["spatial_pgd_step_ms"],
                               what="spatial_pgd_step_ms")
     sp_profile["blender"] = time_blender(torch, card, pipe)
+    log(f"== 6d. where the time goes: one patch batch ({PATCH_COUNT} inner steps) under "
+        "torch.profiler")
+    pa_step, pa_img, pa_patch, pa_gen = pa_batch
+    pa_profile = profile_step(torch, lambda: pa_step(pa_img, pa_patch, pa_gen),
+                              step_ms=main_numbers["patch_inner_step_ms"] * PATCH_COUNT,
+                              what=f"patch batch ({PATCH_COUNT} x patch_inner_step_ms)")
+    if pa_profile.get("device_ms") is not None:
+        log(f"  per patch inner step: device busy {pa_profile['device_ms'] / PATCH_COUNT:.3f} ms, "
+            f"{pa_profile['kernel_launches'] / PATCH_COUNT:.1f} kernel launches [{card}]")
 
     # after the main paths, so that a training-style backward's allocations
     # and cuDNN plans leave their times and peak memories as they were
@@ -1252,13 +1670,15 @@ def main() -> None:
 
     kernels = summarize(records, {"pgd": (launches, per_step),
                                   "whitebox": (wb_launches, wb_per_step),
-                                  "spatial": (sp_launches, sp_per_step)})
+                                  "spatial": (sp_launches, sp_per_step),
+                                  "patch": (pa_launches, pa_per_step)})
     out_dir = os.path.join(HERE, "runs", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
         json.dump(dict(card=card, records=records, kernels=kernels, main=main_numbers,
                        profile=profile, whitebox_profile=wb_profile,
                        spatial_profile=sp_profile,
+                       patch_profile=pa_profile,
                        weight_grad_chain=chain), f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_pipelines import one_torch_thread  # noqa: F401
 from tpufusion.ops import pallas_conv as jpc
 from tpufusion.ops.styled_conv import _pallas_styled_conv
 from tpufusion_torch.ops import conv3x3 as c3

@@ -1,4 +1,5 @@
-"""``chip_smoke.py``'s kernel check fails a kernel whose output is not finite.
+"""``chip_smoke.py``'s kernel check fails a kernel whose output is not finite;
+its summaries and launch checks, and phase 5d's patch-batch check.
 
 The script's error helpers take ``torch`` as an argument and run on CPU
 tensors, so they are checked here without a card.
@@ -145,3 +146,54 @@ def test_spatial_launch_check_counts_forwards_and_partials(smoke):
     assert len(short) == 1 and "fused forwards launched styled_conv 26" in short[0]
     short = smoke.spatial_launch_failures(GOOD_STEP, 27, 9, 3)
     assert len(short) == 1 and "partial fusions launched styled_conv 9" in short[0]
+
+
+PATCH_COUNTS = {"styled_conv": 342, "conv3x3_fwd": 34, "conv3x3_dgrad": 34, "conv3x3_wgrad": 0,
+                "pgd_update": 0, "fused_adam": 17}
+
+
+@pytest.mark.parametrize("change,expect", [
+    ({}, None),
+    ({"pgd_update": 3}, None),  # off the path, not required
+    ({"styled_conv": 0}, "styled_conv no time"),
+    ({"conv3x3_fwd": 0}, "conv3x3_fwd no time"),
+    ({"conv3x3_dgrad": 0}, "conv3x3_dgrad no time"),
+    ({"fused_adam": 0}, "fused_adam no time"),
+    ({"conv3x3_wgrad": 1}, "weight grad 1 times"),
+])
+def test_patch_launch_check(smoke, change, expect):
+    short = smoke.patch_launch_failures({**PATCH_COUNTS, **change})
+    assert short == [] if expect is None else (len(short) == 1 and expect in short[0])
+
+
+def test_summarize_carries_the_patch_run(smoke):
+    """The phase-5d path's launches enter every kernel's entry, and
+    fused_adam timed at the legacy optimize's shape carries it under
+    ``patch``."""
+    records = [_record("fused_adam", "whitebox", 0.15, dtype="float32", lib=0.17),
+               _record("fused_adam", "patch", 0.04, dtype="float32", lib=0.05)]
+    keys = tuple(PATCH_COUNTS)
+    runs = {"whitebox": (dict(zip(keys, (45, 10, 10, 0, 0, 5))),
+                         dict(zip(keys, (9, 2, 2, 0, 0, 1)))),
+            "patch": (PATCH_COUNTS, dict.fromkeys(keys, 0.0))}
+    adam = smoke.summarize(records, runs)[-1]
+    assert adam["name"] == "fused_adam" and adam["launches"] == 5 + 17
+    assert adam["launches_patch_path"] == 17 and adam["launches_per_patch_step"] == 0
+    assert adam["ms"] == 0.15 and adam["patch"]["ms"] == 0.04
+
+
+@pytest.mark.parametrize("trace,patch,descent,expect", [
+    ([-1.0, -1.1, -1.2], 0.5, True, None),
+    ([-1.0, -0.9, -1.2], 0.5, True, None),  # first to last
+    ([-1.0, -1.1, -0.9], 0.5, True, "did not fall"),
+    ([-1.0, -1.1, -0.9], 0.5, False, None),  # the bf16 run: range only
+    ([-1.0, float("nan"), -1.2], 0.5, False, "did not fall"),
+    ([-1.0, -1.1, -1.2], 1.5, True, "leaves the image's range"),
+])
+def test_patch_batch_check(smoke, monkeypatch, trace, patch, descent, expect):
+    failures = []
+    monkeypatch.setattr(smoke, "fail", failures.append)
+    img = torch.linspace(-1, 1, 12).reshape(1, 2, 2, 3)
+    smoke._check_patch_batch(torch, "batch", img, torch.full((2, 2, 3), patch),
+                             torch.tensor(trace), descent)
+    assert failures == [] if expect is None else (len(failures) == 1 and expect in failures[0])

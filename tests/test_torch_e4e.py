@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_pipelines import one_torch_thread  # noqa: F401
 from tests.torch_ref import Encoder4EditingT, GeneratorT
 from tpufusion.core.dtypes import Policy as JPolicy
 from tpufusion.io.checkpoint import convert_e4e_checkpoint, convert_stylegan2_checkpoint

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_pipelines import one_torch_thread, port_of  # noqa: F401
 from tpufusion.attacks.fusion_attack import make_fused_image_fn as j_fused_fn
 from tpufusion.core.imaging import avg_pool as j_avg_pool
 from tpufusion.eval import metrics as jm
@@ -58,51 +59,10 @@ from tpufusion_torch.eval import (
     ssim,
 )
 from tpufusion_torch.fusion.spatial import spatial_fused
-from tpufusion_torch.io.convert import (
-    blender_state_from_jax,
-    encoder_state_from_jax,
-    generator_state_from_jax,
-    state_dict_to_torch,
-    vgg_state_from_jax,
-)
-from tpufusion_torch.pipeline import FusionPipeline
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 EPS, ALPHA = 16 / 255, 0.02
 N = 5  # the ffhq role count
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The test workers share the machine's cores: one intra-op thread per
-    worker keeps these 32^2 runs from oversubscribing them (restored after
-    the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _np(tree):
-    return jax.tree.map(np.asarray, tree)
-
-
-def _port_of(jp):
-    """The port's 32^2 pipeline on the JAX test pipeline's weights."""
-    tp = FusionPipeline.create(
-        "ffhq", size=32, channel_multiplier=1, encoder_base_channels=16,
-        encoder_units=(1, 1, 1, 1), encoder_input_size=32, mean_latent_samples=8,
-        device="cpu", seed=0)
-    tp.generator.load_state_dict(state_dict_to_torch(generator_state_from_jax(
-        _np(jp.drawer.gen_vars), 32, 1)))
-    tp.encoder.load_state_dict(state_dict_to_torch(encoder_state_from_jax(
-        _np(jp.enc_vars), (1, 1, 1, 1))))
-    tp.vgg.load_state_dict(state_dict_to_torch(vgg_state_from_jax(_np(jp.vgg_vars))))
-    tp.drawer.blender.load_state_dict(state_dict_to_torch(blender_state_from_jax(
-        _np(jp.drawer.blend_params))))
-    tp.latent_avg = torch.from_numpy(np.array(jp.latent_avg))
-    tp.drawer.mean_latent = torch.from_numpy(np.array(jp.drawer.mean_latent))
-    return tp
 
 
 @pytest.fixture(scope="module")
@@ -114,7 +74,7 @@ def pipelines():
     x = rng.uniform(-1, 1, (N, 32, 32, 3)).astype(np.float32)
     target = rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
     start = np.clip(x + rng.uniform(-EPS, EPS, x.shape), -1, 1).astype(np.float32)
-    return jp, _port_of(jp), params, x, target, start
+    return jp, port_of(jp), params, x, target, start
 
 
 def test_spatial_fused_image_matches_jax(pipelines):

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_pipelines import one_torch_thread  # noqa: F401
 from tpufusion.attacks.fusion_attack import make_fused_image_fn as j_fused_fn
 from tpufusion.attacks.pgd import PGDConfig as JPGDConfig
 from tpufusion.attacks.pgd import make_pgd as j_make_pgd

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_pipelines import one_torch_thread  # noqa: F401
 from tpufusion.core.dtypes import Policy as JPolicy
 from tpufusion.models import create_generator
 from tpufusion_torch.fusion.arithmetic import arithmetic_fusion

@@ -67,7 +67,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from tpufusion_torch.core.dtypes import resolve_device
     from tpufusion_torch.fusion.drawer import FusionDrawer
     from tpufusion_torch.models.e4e import Encoder4Editing
+    from tpufusion_torch.core.prng import PRNGPool, seed_everything
     from tpufusion_torch.models.fusion_hierarchy import HierarchyBlender
+    from tpufusion_torch.models.lpips import LPIPS, load_torch_lpips
     from tpufusion_torch.models.stylegan2 import Generator
     from tpufusion_torch.models.vgg16 import VGG16
     from tpufusion_torch.pipeline import FusionPipeline
@@ -83,6 +85,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                           input_size=32),
                   lambda: VGG16(),
                   lambda: HierarchyBlender("ffhq", [512] * 26),
+                  lambda: LPIPS(),
+                  lambda: PRNGPool(),
+                  lambda: seed_everything(),
                   # the eval entry points run arrays on the card unless asked
                   lambda: ev.mse_per_image(img, img),
                   lambda: ev.input_noise_mse(img, img),
@@ -96,6 +101,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                                  img, img)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+    # the checkpoint loader builds its network on the card unless asked
+    monkeypatch.setattr(torch, "load", lambda *a, **k: {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_torch_lpips("lpips.pth")
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

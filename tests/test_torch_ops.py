@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_pipelines import one_torch_thread  # noqa: F401
 from tpufusion.ops import pallas_conv as jpc
 from tpufusion.ops.modconv import modulated_conv2d as j_modconv
 from tpufusion.ops.pgd_update import pgd_update as j_pgd

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_pipelines import one_torch_thread  # noqa: F401
 from tpufusion.core.dtypes import Policy as JPolicy
 from tpufusion.fusion.drawer import FusionDrawer as JDrawer
 from tpufusion.models.fusion_hierarchy import HierarchyBlender as JBlender
@@ -48,17 +49,6 @@ from tpufusion_torch.models.stylegan2 import Generator
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
 TOL = dict(atol=2e-4, rtol=2e-4)
 DIMS = (8, 16, 8)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The test workers share the machine's cores: one intra-op thread per
-    worker keeps these 32^2 runs from oversubscribing them (restored after
-    the module)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

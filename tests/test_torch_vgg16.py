@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_pipelines import one_torch_thread  # noqa: F401
 from tests.torch_ref import VGGBaseT, nchw_to_nhwc
 from tpufusion.core.dtypes import Policy as JPolicy
 from tpufusion.models.vgg16 import create_vgg16

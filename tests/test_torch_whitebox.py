@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_pipelines import one_torch_thread  # noqa: F401
 from tpufusion.attacks import whitebox as jwb
 from tpufusion.pipeline import create_test_pipeline
 from tpufusion_torch.attacks import whitebox as wb

@@ -305,3 +305,113 @@ def run_whitebox(pipeline: FusionPipeline, inputs, target_img, config: WhiteboxC
     adv = inputs.clone()
     adv[idx] = adv_sel.to(adv.dtype)
     return (adv, *rest)
+
+
+# ---------------------------------------------------------------------------
+# the legacy LPIPS-net variants ``optimize`` / ``optimize_copy``
+# ---------------------------------------------------------------------------
+
+
+def _sum_mse(a, b):
+    """``nn.MSELoss(reduction='sum')``: the legacy variants use the sum, not
+    the mean (`attack_main2.py:684`)."""
+    d = a.float() - b.float()
+    return (d * d).sum()
+
+
+@dataclasses.dataclass(frozen=True)
+class LegacyOptimizeConfig:
+    """Reference ``optimize`` / ``optimize_copy`` (`attack_main2.py:674-762`):
+    Adam(lr=0.01) for 1000 iterations on the pixels, the LPIPS-net perceptual
+    term, sum-reduction MSEs, a snapshot of the input every 50 iterations."""
+
+    lr: float = 0.01
+    n_iters: int = 1000
+    variant: str = "optimize"  # or "optimize_copy"
+    snapshot_every: int = 50
+
+
+def _make_legacy_loss(pipeline: FusionPipeline, lpips_model, variant: str):
+    """``(ref_fn, loss_fn)`` of a legacy variant: ``ref = ref_fn(img,
+    target)``, the no-grad bundle, and ``total, terms = loss_fn(x, ref)``."""
+    if variant not in ("optimize", "optimize_copy"):
+        raise ValueError(f"unknown legacy variant {variant!r}")
+    factor = pipeline.pool_factor
+    copy_variant = variant == "optimize_copy"
+
+    @torch.no_grad()
+    def ref_fn(img, target_img):
+        r_t = avg_pool(target_img, factor)
+        latent_target = pipeline.encoder(r_t)
+        return dict(img_org=img, target=target_img, r_target=r_t, latent_target=latent_target,
+                    target_rec=pipeline.decode(latent_target) if copy_variant else None)
+
+    def loss_fn(x, ref):
+        latent_pred = pipeline.encoder(avg_pool(x, factor))
+        img_rec = pipeline.decode(latent_pred)
+        if copy_variant:
+            l_lpips = lpips_model(ref["target"], img_rec)
+            l_img_rec = _sum_mse(ref["target_rec"], img_rec)
+        else:
+            l_lpips = lpips_model(ref["r_target"], avg_pool(img_rec, factor))
+            l_img_rec = _sum_mse(ref["target"], img_rec)
+        terms = dict(
+            img_org=_sum_mse(ref["img_org"], x),
+            lpips_rec=l_lpips.sum(),
+            latent=_sum_mse(ref["latent_target"], latent_pred),
+            img_rec=l_img_rec,
+        )
+        return sum(terms.values()), terms
+
+    return ref_fn, loss_fn
+
+
+def make_legacy_optimize(pipeline: FusionPipeline, lpips_model, config: LegacyOptimizeConfig):
+    """The legacy LPIPS-net white-box optimizer; ``lpips_model`` is a
+    ``models.lpips.LPIPS`` on the pipeline's device.
+
+    Loss (``optimize``, `attack_main2.py:697-708`), with raw codes:
+        sumMSE(img_org, x) + LPIPS(pool(target), pool(dec(enc(pool(x)))))
+      + sumMSE(latent_target, enc(pool(x))) + sumMSE(target, dec(...))
+    ``optimize_copy`` (`:723-753`) scores LPIPS at full resolution and the
+    reconstruction against the target's own reconstruction ``target_rec``.
+    Each iteration is one forward, one backward to the pixels and one
+    ``ops.adam_update.fused_adam`` step (``optax.adam(lr)``'s update).
+
+    Returns ``attack(img, target_img) -> (adv, trace, snapshots)``: ``trace``
+    maps ``img_org``, ``lpips_rec``, ``latent``, ``img_rec`` and ``total`` to
+    (n_iters,) tensors; ``snapshots`` is host numpy with the rows of the
+    reference's ``optimize.png`` (`:689,714-718`): the original image, then
+    the pixels after k * snapshot_every + 1 steps for k = 1 ..
+    (n_iters - 1) // snapshot_every, leading axis 1 + (n_iters - 1) //
+    snapshot_every; zero-length when ``snapshot_every`` is 0 or None."""
+    ref_fn, loss_fn = _make_legacy_loss(pipeline, lpips_model, config.variant)
+    every = int(config.snapshot_every or 0)
+
+    def host(x):
+        return x.detach().float().cpu().numpy()
+
+    def attack(img, target_img):
+        ref = ref_fn(img, target_img)
+        x = img.detach().float().clone(memory_format=torch.contiguous_format)
+        opt_state = adam_init(x)
+        # the reference seeds the montage with the original image (`:689`)
+        snaps = [host(img)] if every else []
+        traces = []
+        for it in range(config.n_iters):
+            xg = x.detach().requires_grad_(True)
+            total, terms = loss_fn(xg, ref)
+            (g,) = torch.autograd.grad(total, xg)
+            x, opt_state = fused_adam(x, g.contiguous(), opt_state, config.lr)
+            terms = {k: v.detach() for k, v in terms.items()}
+            terms["total"] = total.detach()
+            traces.append(terms)
+            # the reference's post-step check at loop index `it` (`:714`)
+            if every and it % every == 0 and it > 0:
+                snaps.append(host(x))
+        trace = {k: torch.stack([t[k] for t in traces]) for k in traces[0]}
+        frames = (np.stack(snaps) if snaps else
+                  np.zeros((0,) + tuple(img.shape), np.float32))
+        return x, trace, frames
+
+    return attack

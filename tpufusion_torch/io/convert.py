@@ -151,6 +151,18 @@ def vgg_state_from_jax(variables_np: dict) -> dict:
             for k, v in (("weight", _conv(layer["kernel"])), ("bias", np.asarray(layer["bias"])))}
 
 
+def lpips_state_from_jax(variables_np: dict) -> dict:
+    """JAX ``LPIPS`` variables -> the port's ``LPIPS`` state dict:
+    ``conv*_*.{weight (OIHW), bias}`` and the heads ``lin{i}`` (C, 1) ->
+    (1, C, 1, 1)."""
+    p = variables_np["params"]
+    sd = vgg_state_from_jax({"params": {k: v for k, v in p.items() if not k.startswith("lin")}})
+    for k, v in p.items():
+        if k.startswith("lin"):
+            sd[k] = np.asarray(v).reshape(1, -1, 1, 1)
+    return sd
+
+
 def blender_state_from_jax(blend_params_np: dict) -> dict:
     """JAX ``HierarchyBlender`` params ``{node: {"params": {"gate{i}_fc{1,2}":
     {kernel, bias}}}}`` -> the port blender's state dict

@@ -1,4 +1,5 @@
-"""Ops: resampling, modulated conv and the four hand-written Hopper kernels.
+"""Ops: resampling, modulated conv, the masked patch composite and the four
+hand-written Hopper kernels.
 
 The kernel modules ``styled_conv``, ``conv3x3``, ``pgd_update`` and
 ``adam_update`` each hold a kernel wrapper (``fused_adam`` in
@@ -8,6 +9,7 @@ tpufusion_torch.ops.conv3x3 import conv3x3``).
 """
 
 from tpufusion_torch.ops import adam_update, conv3x3, pgd_update, styled_conv
+from tpufusion_torch.ops.composite import masked_composite
 from tpufusion_torch.ops.modconv import modulated_conv2d
 from tpufusion_torch.ops.upfirdn2d import (
     blur,
@@ -41,6 +43,6 @@ def launch_counts() -> dict:
 
 __all__ = [
     "adam_update", "blur", "conv3x3", "launch_counts", "make_blur_kernel",
-    "modulated_conv2d", "pgd_update", "reset_launch_counts", "styled_conv", "upfirdn2d",
-    "upsample_2x",
+    "masked_composite", "modulated_conv2d", "pgd_update", "reset_launch_counts",
+    "styled_conv", "upfirdn2d", "upsample_2x",
 ]
