@@ -13,7 +13,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 3. kernels against their plain PyTorch versions on the card, at the shapes
    of the main paths (fusion PGD, batch 1 synthesis; white-box, batch 5;
    spatial fusion: batch 1 in the attack, batch 6 in the partial-fusion
-   evaluation, 5 inputs for pgd_update),
+   evaluation, 5 inputs for pgd_update; classifier transfer: pgd_update and
+   fused_adam on 8 x 1024^2 x 3, pgd_update on 8 x 512^2 x 3 untimed),
    in float32 (TF32 off) and bfloat16, with times, and untimed at the
    ragged tile edges of the bf16 tensor-core conv kernels; the weight grad
    also at tiny and ragged planes where the border is a large share of the
@@ -33,7 +34,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    under a 1e-6 move of the inputs; then the spatial fused image of 5
    inputs and its pixel and 'vgg' gradients; a patch step (max_count 2,
    with and without the reconstruction terms), the LPIPS distance and 2
-   iterations of each legacy optimize variant;
+   iterations of each legacy optimize variant; a width-8 resnet and the
+   tiny ViT (logits, pixel gradients, 5 classifier PGD steps), a 10-step CW
+   run where images succeed, the 32^2 discriminator at batches 4 and 3, and
+   the 32^2 pipeline saved and loaded on the card (bit-identical fusions);
 5. the fusion main path at full width: the FFHQ 1024^2 config-f generator +
    e4e IR-SE-50 + VGG16 pipeline (seeded random weights), one fused-image
    forward, FGSM, and PGD with the default eps/alpha for 5 steps after a
@@ -56,9 +60,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    paste and the out-of-domain inputs, the hybrid splice of blur and dp,
    all fused; both legacy variants on one image, 3 iterations; the launch
    counts read around it all;
+5e. the classifier-transfer path at full width on the same pipeline
+   (``configs/ffhq_classifier_transfer.json``, seeded random classifier
+   weights): classifier PGD against a resnet18 (2-way head, 256^2 input) on
+   8 1024^2 images, 100 steps; CW (c 1e-4, 200 steps, then 20 steps at
+   c 1e4); PGD against ViT-B/16 (196 labels) on 8 512^2 images, 100 steps;
+   the first five clean and PGD crops fused in both modes with the partial
+   fusions; a config-f 1024^2 discriminator scoring the clean and
+   adversarial fusions; the launch counts read around it all;
 6. device time by kernel for one PGD step, one white-box step (6b), one
-   spatial PGD step (6c) and one patch batch (6d), from torch.profiler, with
-   the step's kernel launches; 6c also times one full-width blender
+   spatial PGD step (6c), one patch batch (6d) and one classifier PGD
+   step, CW step, ViT PGD step and realism batch (6e), from torch.profiler,
+   with the step's kernel launches; 6c also times one full-width blender
    forward + backward;
 7. the kernels line (JSON, one object) and the last line
    ``{"ok": true, "device": {...}}``.
@@ -146,10 +159,13 @@ CONV_RAGGED = [(2, 37, 53, 64), (1, 33, 70, 32)]
 # tiles are a large share of the sum (a single pixel: 8 of 9 taps read only
 # padding; a plane narrower than a k-step; one row and column past a tile)
 WGRAD_RAGGED = [(1, 1, 1, 32), (1, 3, 37, 64), (2, 17, 16, 32), (3, 37, 53, 64)]
-# the white-box batch and the legacy optimize's one image (phase 5d)
+# the white-box batch, the legacy optimize's one image (phase 5d) and CW's
+# batch of 8 (phase 5e)
 ADAM_SHAPES = {(5, 1024, 1024, 3): "whitebox", (1, 1024, 1024, 3): "patch",
-               (3, 37, 53, 3): None}
-PGD_SHAPES = {(2, 1024, 1024, 3): "pgd", (5, 1024, 1024, 3): "spatial", (3, 37, 53, 3): None}
+               (8, 1024, 1024, 3): "classifier", (3, 37, 53, 3): None}
+# phase 5e's resnet PGD is timed; its ViT PGD (8 x 512^2) is checked untimed
+PGD_SHAPES = {(2, 1024, 1024, 3): "pgd", (5, 1024, 1024, 3): "spatial",
+              (8, 1024, 1024, 3): "classifier", (8, 512, 512, 3): None, (3, 37, 53, 3): None}
 TOL = {"float32": 1e-3, "bfloat16": 3e-2}  # on max|err| / max(1, max|plain|)
 # The weight grad returns float32 sums and rounds nothing to bf16. A product
 # of two bf16 values is exact in float32, so the kernel and its plain version
@@ -725,6 +741,7 @@ def check_small_reference(torch):
                  f"{held['excess']}")
     check_fusion_card_vs_cpu(torch, cpu, gpu, *small_spatial_inputs(torch), "spatial")
     check_patch_lpips_legacy(torch, cpu, gpu, x, t)
+    check_classifier_small(torch, gpu)
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -1428,6 +1445,401 @@ def run_patch_path(torch, card, pipe):
     return launches, per_inner, out, (step, train[:1], init_patch_square(size, 0.1, gen), gen)
 
 
+# ---------------------------------------------------------------------------
+# phase 4 (classifier transfer): the classifiers, classifier PGD, CW, the
+# discriminator and pipeline persistence at 32^2, card against CPU
+# ---------------------------------------------------------------------------
+
+# configs/ffhq_classifier_transfer.json: eps 8/255 and alpha 0.01 in [0, 1],
+# doubled for the [-1, 1] range, as the runner does (runner.py:396-397)
+CLF_EPS, CLF_ALPHA = 8 / 255 * 2, 0.01 * 2
+SMALL_VIT = dict(image_size=32, patch_size=8, hidden_size=32, num_layers=2, num_heads=2,
+                 intermediate_size=64)  # the runner's tiny ViT (runner.py:105-108)
+SMALL_CLF_SEED, SMALL_CLF_STEPS = 11, 5
+# the ViT's CW run at 32^2: some images succeed, and no step's margin comes
+# within 1e-3 of 0 (the CPU run asserts it), so rounding decides no success
+SMALL_CW = dict(c=10.0, steps=10, lr=0.02)
+SMALL_CW_MARGIN = 1e-3
+CLF_TOL = 1e-4  # logits, scores and traces, of max(1, max|CPU|); fp32, TF32 off
+CLF_GRAD_TOL = 1e-3  # pixel gradients, of max|CPU grad|
+
+
+def _cw_margins(torch, logits, labels):
+    """CW's margin ``real - other`` of each row (``attacks/cw.py``)."""
+    one_hot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1]).float()
+    return (one_hot * logits).sum(-1) - ((1 - one_hot) * logits - one_hot * 1e9).amax(-1)
+
+
+def cw_bookkeeping_failures(torch, images, best_adv, best_l2, what):
+    """CW's best-iterate bookkeeping: where ``best_l2`` is inf, ``best_adv``
+    is the image bit for bit; elsewhere ``best_l2`` is ``sum((best_adv -
+    images)^2)`` to rtol 1e-5; pixels in [-1, 1]."""
+    out = []
+    won = torch.isfinite(best_l2)
+    if not torch.equal(best_adv[~won], images[~won]):
+        out.append(f"{what}: an image without success has moved")
+    if won.any():
+        l2 = ((best_adv[won].double() - images[won].double()) ** 2).sum(dim=(1, 2, 3))
+        rel = ((best_l2[won].double() - l2).abs() / l2).max().item()
+        if not rel <= 1e-5:
+            out.append(f"{what}: best_l2 is not the L2 of best_adv (rel {rel:.3e} > 1e-5)")
+    if not (best_adv.min().item() >= -1 and best_adv.max().item() <= 1):
+        out.append(f"{what}: best_adv leaves [-1, 1]")
+    return out
+
+
+def check_classifier_small(torch, gpu):
+    """Phase 4's classifier-transfer checks, card against CPU on the same
+    weights (fp32 policy, TF32 off): a width-8 resnet and the tiny ViT
+    (logits, pixel gradients through the 64^2 -> 32^2 resize, 5 classifier
+    PGD steps from one start), the ViT's CW run (10 steps, some images
+    succeed), the 32^2 discriminator at batches 4 and 3, and the 32^2
+    pipeline ``gpu`` saved and loaded on the card (the fused images
+    bit-identical)."""
+    import copy
+    import tempfile
+
+    import torch.nn.functional as F
+
+    from tpufusion_torch.attacks.cw import CWConfig, make_cw
+    from tpufusion_torch.attacks.fusion_attack import make_fused_image_fn
+    from tpufusion_torch.attacks.pgd import PGDConfig, make_pgd
+    from tpufusion_torch.core.dtypes import Policy
+    from tpufusion_torch.models.classifiers import create_vit_classifier, resnet_logits_fn
+    from tpufusion_torch.models.discriminator import create_discriminator, realism_scores
+    from tpufusion_torch.models.resnet import ResNet
+    from tpufusion_torch.pipeline import FusionPipeline
+
+    gen = torch.Generator().manual_seed(SMALL_CLF_SEED)
+    x = torch.rand((4, 64, 64, 3), generator=gen) * 2 - 1
+    resnet = ResNet(2, width=8, policy=Policy(), device="cpu", generator=gen)
+    vit_fn, vit = create_vit_classifier(8, policy=Policy(), device="cpu", seed=SMALL_CLF_SEED,
+                                        **SMALL_VIT)
+    nets = {"resnet": (resnet_logits_fn(32), resnet.requires_grad_(False)),
+            "vit": (vit_fn, vit)}
+    start = (x + (torch.rand(x.shape, generator=gen) * 2 - 1) * CLF_EPS).clamp(-1, 1)
+    weights = torch.linspace(-1, 1, 8)
+    for name, (fn, cpu_net) in nets.items():
+        gpu_net = copy.deepcopy(cpu_net).cuda()
+        outs = []
+        for net, dev in ((cpu_net, "cpu"), (gpu_net, "cuda")):
+            xa = x.to(dev).requires_grad_(True)
+            logits = fn(net, xa)
+            (g,) = torch.autograd.grad((logits * weights[: logits.shape[-1]].to(dev)).sum(), xa)
+            outs.append((logits.detach().cpu(), g.cpu()))
+        err_l = _rel(torch, outs[1][0], outs[0][0])
+        err_g = ((outs[1][1] - outs[0][1]).abs().max() / outs[0][1].abs().max()).item()
+        log(f"  small reference: {name} logits card vs CPU rel err {err_l:.3e} (tol "
+            f"{CLF_TOL:.0e}), pixel grad rel err {err_g:.3e} (tol {CLF_GRAD_TOL:.0e})")
+        if not (err_l <= CLF_TOL and err_g <= CLF_GRAD_TOL):
+            fail(f"32^2 {name} on the card disagrees with the CPU: logits {err_l}, grad {err_g}")
+        labels = outs[0][0].argmax(-1)
+
+        def ce(adv, net_, y):
+            return F.cross_entropy(fn(net_, adv), y)
+
+        cfg = PGDConfig(eps=CLF_EPS, alpha=CLF_ALPHA, steps=SMALL_CLF_STEPS)
+        runs = [make_pgd(ce, cfg, external_start=True)(x.to(dev), start.to(dev), net,
+                                                       labels.to(dev))
+                for net, dev in ((cpu_net, "cpu"), (gpu_net, "cuda"))]
+        err_t = _rel(torch, runs[1][1], runs[0][1])
+        moved = (runs[1][0].cpu() - runs[0][0]).abs()
+        apart = (moved > 1e-6).float().mean().item()
+        ball = max((a.cpu() - x).abs().max().item() for a, _ in runs)
+        log(f"  small reference: {name} PGD {SMALL_CLF_STEPS} steps card vs CPU: CE trace rel "
+            f"err {err_t:.3e} (tol {CLF_TOL:.0e}); pixels apart by > 1e-6: {apart:.4f} "
+            f"(tol 0.01), largest {moved.max().item():.3e}; max |adv - x| {ball:.6f}")
+        if not (err_t <= CLF_TOL and apart <= 0.01 and ball <= CLF_EPS + 1e-6):
+            fail(f"32^2 {name} PGD on the card disagrees with the CPU: trace {err_t}, "
+                 f"pixels apart {apart}, eps-ball {ball}")
+        if name == "vit":
+            seen = []
+
+            def recording(im, net_):
+                logits = fn(net_, im)
+                if im.device.type == "cpu":
+                    seen.append(logits.detach())
+                return logits
+
+            cws = [make_cw(recording, CWConfig(**SMALL_CW))(x.to(dev), labels.to(dev), net)
+                   for net, dev in ((cpu_net, "cpu"), (gpu_net, "cuda"))]
+            margin = torch.stack([_cw_margins(torch, lg, labels) for lg in seen]).abs().min()
+            won = [torch.isfinite(l2.cpu()) for _, l2 in cws]
+            if not margin > SMALL_CW_MARGIN:
+                fail(f"32^2 CW: a step's margin came within {margin.item()} of 0 on the CPU")
+            short = [f for (adv, l2), dev in zip(cws, ("CPU", "card"))
+                     for f in cw_bookkeeping_failures(torch, x, adv.cpu(), l2.cpu(),
+                                                      f"32^2 CW on the {dev}")]
+            if short or not torch.equal(won[0], won[1]) or not won[0].any():
+                fail(f"32^2 CW: {short}; successes CPU {won[0].tolist()}, card "
+                     f"{won[1].tolist()}")
+            err_l2 = ((cws[1][1].cpu()[won[0]] - cws[0][1][won[0]]).abs()
+                      / cws[0][1][won[0]]).max().item()
+            err_adv = (cws[1][0].cpu() - cws[0][0]).abs().max().item()
+            log(f"  small reference: CW {SMALL_CW} card vs CPU: successes {won[0].tolist()}, "
+                f"best_l2 rel err {err_l2:.3e} (tol 1e-4), best_adv max err {err_adv:.3e} "
+                f"(tol 1e-4); closest margin to 0 {margin.item():.3e}")
+            if not (err_l2 <= 1e-4 and err_adv <= 1e-4):
+                fail(f"32^2 CW on the card disagrees with the CPU: {err_l2}, {err_adv}")
+
+    d_cpu = create_discriminator(32, channel_multiplier=1, policy=Policy(), device="cpu",
+                                 seed=SMALL_CLF_SEED)
+    d_gpu = copy.deepcopy(d_cpu).cuda()
+    imgs = torch.rand((4, 32, 32, 3), generator=gen) * 2 - 1
+    for n in (4, 3):
+        with torch.no_grad():
+            want = realism_scores(d_cpu, imgs[:n])
+            err = _rel(torch, realism_scores(d_gpu, imgs[:n].cuda()), want)
+        log(f"  small reference: 32^2 realism_scores batch {n} card vs CPU rel err {err:.3e} "
+            f"(tol {CLF_TOL:.0e})")
+        if not err <= CLF_TOL:
+            fail(f"32^2 realism scores (batch {n}) on the card disagree with the CPU: {err}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gpu.save(tmp)
+        back = FusionPipeline.load(tmp, policy=gpu.policy, device="cuda")
+    differ = [f"{name}.{k}" for name in ("generator", "encoder", "vgg")
+              for k, v in getattr(gpu, name).state_dict().items()
+              if not torch.equal(getattr(back, name).state_dict()[k], v)]
+    # The synthesis's transposed convs (cuDNN's data-grad algorithms) may
+    # sum in another order from call to call: two calls of one pipeline
+    # differed by 9.5e-7 on the card (PERF.md). With cuDNN's deterministic
+    # algorithms a call repeats its bits, so the comparison sees only what
+    # was saved and loaded.
+    torch.backends.cudnn.deterministic = True
+    with torch.no_grad():
+        xs = x[:2, :32, :32].contiguous().cuda()
+        want, again = (make_fused_image_fn(gpu)(xs) for _ in range(2))
+        got = make_fused_image_fn(back)(xs)
+    torch.backends.cudnn.deterministic = False
+    repeat, same = torch.equal(want, again), torch.equal(got, want)
+    log(f"  small reference: FusionPipeline.save -> load(device='cuda'): weights that differ "
+        f"{differ}; fused image bit-identical {same} (max err "
+        f"{(got - want).abs().max().item():.3e}; a second call of the saved pipeline "
+        f"bit-identical {repeat}, cuDNN deterministic)")
+    if differ or not (repeat and same):
+        fail("the 32^2 pipeline saved and loaded on the card fuses other images")
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the classifier-transfer path at full width
+# ---------------------------------------------------------------------------
+
+CLF_N, CLF_STEPS = 8, 100  # bench.py's headline batch; the config's 100 PGD steps
+CW_STEPS = 200  # CWConfig's default c (1e-4) and steps: the reference's CW(model, steps=200)
+# a c at which the margin term outweighs the L2 term, so that some images
+# succeed within a short run
+CW_BIG_C, CW_BIG_STEPS = 1e4, 20
+VIT_N, VIT_SIZE, VIT_STEPS = 8, 512, 100  # the car generator's size
+TRANSFER_N = 5  # the ffhq fusion roles
+REALISM_REPS = 5
+
+
+def classifier_launch_failures(pgd_counts, cw_counts, vit_counts, transfer_counts):
+    """What phase 5e's launch counts fall short of: each PGD run launches
+    pgd_update once a step and fused_adam never, the CW run fused_adam once a
+    step; the fusions launch styled_conv; no run launches the weight grad."""
+    out = []
+    for what, counts, steps in (("resnet PGD", pgd_counts, CLF_STEPS),
+                                ("ViT PGD", vit_counts, VIT_STEPS)):
+        if counts["pgd_update"] != steps or counts["fused_adam"] != 0:
+            out.append(f"{what} ({steps} steps) launched pgd_update {counts['pgd_update']} "
+                       f"and fused_adam {counts['fused_adam']} times")
+    if cw_counts["fused_adam"] != CW_STEPS or cw_counts["pgd_update"] != 0:
+        out.append(f"CW ({CW_STEPS} steps) launched fused_adam {cw_counts['fused_adam']} and "
+                   f"pgd_update {cw_counts['pgd_update']} times")
+    if transfer_counts["styled_conv"] <= 0:
+        out.append("the transfer fusions launched styled_conv no time")
+    for what, counts in (("resnet PGD", pgd_counts), ("CW", cw_counts),
+                         ("ViT PGD", vit_counts), ("the transfer fusions", transfer_counts)):
+        if counts["conv3x3_wgrad"]:
+            out.append(f"{what} launched the weight grad {counts['conv3x3_wgrad']} times")
+    return out
+
+
+def _diff(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _timed(torch, fn):
+    """``fn()`` after a synchronize and a peak-memory reset: its result, its
+    wall ms (host clock around a synchronize) and its peak GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _check_pgd_run(torch, what, images, adv, trace):
+    trace = trace.float().cpu()
+    dev = (adv - images).abs().max().item()
+    if not (torch.isfinite(adv).all() and dev <= CLF_EPS + 1e-6):
+        fail(f"{what}: adv leaves the eps-ball ({dev} > {CLF_EPS})")
+    if not (adv.min().item() >= -1 and adv.max().item() <= 1):
+        fail(f"{what}: adv leaves [-1, 1]")
+    if not (torch.isfinite(trace).all() and trace[-1] > trace[0]):
+        fail(f"{what}: the CE did not rise: {trace[0].item()} -> {trace[-1].item()}")
+    return dev
+
+
+def run_classifier_path(torch, card, pipe):
+    """Phase 5e on the pipeline of phase 5, with the launch counts set to 0
+    just before and read just after: (1) classifier PGD against a seeded
+    resnet18 (2-way head, 256^2 input) on 8 1024^2 images, the config's
+    budget, after a 1-step warm-up; (2) CW at the recipe's c, 200 steps, then
+    20 steps at a large c; (3) PGD against ViT-B/16 (196 labels) on 8 512^2
+    images, 100 steps; (4) the first five clean and PGD crops fused in both
+    modes, with the partial fusions and their metrics; (5) a config-f 1024^2
+    discriminator scoring the clean and adversarial fusions. Returns the
+    launch counts, the launches per step (a resnet PGD step; fused_adam per
+    CW step), the numbers and, for phase 6e, one call of each timed step
+    by the name of its metric."""
+    import torch.nn.functional as F
+
+    from tpufusion_torch import ops
+    from tpufusion_torch.attacks.cw import CWConfig, make_cw
+    from tpufusion_torch.attacks.pgd import PGDConfig, make_pgd
+    from tpufusion_torch.eval import benign_fusion, fused_image_metrics, partial_adv_fusion
+    from tpufusion_torch.models.classifiers import create_vit_classifier, load_gender_classifier
+    from tpufusion_torch.models.discriminator import create_discriminator, realism_scores
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand((CLF_N, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
+    xv = torch.rand((VIT_N, VIT_SIZE, VIT_SIZE, 3), generator=gen, device="cuda") * 2 - 1
+    fn, resnet = load_gender_classifier(None, device="cuda", seed=7)
+    vit_fn, vit = create_vit_classifier(196, device="cuda", seed=8)
+    disc = create_discriminator(1024, channel_multiplier=2, device="cuda", seed=9)
+
+    def ce_of(logits_fn):
+        def ce(adv, net, labels):
+            return F.cross_entropy(logits_fn(net, adv).float(), labels)
+        return ce
+
+    cfg = PGDConfig(eps=CLF_EPS, alpha=CLF_ALPHA, steps=CLF_STEPS)
+    pgd = make_pgd(ce_of(fn), cfg)
+    pgd1 = make_pgd(ce_of(fn), dataclasses.replace(cfg, steps=1))
+    with torch.no_grad():
+        labels = fn(resnet, x).argmax(-1)
+        vit_labels = vit_fn(vit, xv).argmax(-1)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (1) classifier PGD
+    pgd1(x, gen, resnet, labels)  # warm-up (cuDNN plans)
+    before = ops.launch_counts()
+    (adv, trace), ms, peak = _timed(torch, lambda: pgd(x, gen, resnet, labels))
+    pgd_counts = _diff(ops.launch_counts(), before)
+    dev = _check_pgd_run(torch, "classifier PGD", x, adv, trace)
+    with torch.no_grad():
+        flips = int((fn(resnet, adv).argmax(-1) != labels).sum())
+    out.update(classifier_pgd_step_ms=ms / CLF_STEPS, classifier_pgd_peak_memory_gib=peak,
+               classifier_pgd_flips=flips)
+    log(f"  classifier_pgd_step_ms {ms / CLF_STEPS:.3f} [{card}] (resnet18 at 256^2, batch "
+        f"{CLF_N} at 1024^2, bf16, mean of {CLF_STEPS} steps)")
+    log(f"  classifier_pgd_peak_memory_gib {peak:.3f} [{card}]")
+    log(f"  CE {trace[0].item():.6f} -> {trace[-1].item():.6f}; max |adv - x| {dev:.6f} (eps "
+        f"{CLF_EPS:.6f}); labels flipped {flips} of {CLF_N} (random weights: not gated)")
+
+    # (2) CW at the recipe's c, then at a large c
+    def cw_of(config):
+        return make_cw(lambda im, net: fn(net, im), config)
+
+    cw_of(CWConfig(steps=1))(x, labels, resnet)  # warm-up
+    before = ops.launch_counts()
+    (best_adv, best_l2), ms, peak = _timed(
+        torch, lambda: cw_of(CWConfig(steps=CW_STEPS))(x, labels, resnet))
+    cw_counts = _diff(ops.launch_counts(), before)
+    big_adv, big_l2 = cw_of(CWConfig(c=CW_BIG_C, steps=CW_BIG_STEPS))(x, labels, resnet)
+    short = cw_bookkeeping_failures(torch, x, best_adv, best_l2, "CW")
+    short += cw_bookkeeping_failures(torch, x, big_adv, big_l2, f"CW at c {CW_BIG_C:g}")
+    wins, big_wins = int(torch.isfinite(best_l2).sum()), int(torch.isfinite(big_l2).sum())
+    if not big_wins:
+        short.append(f"CW at c {CW_BIG_C:g}, {CW_BIG_STEPS} steps: no image succeeded")
+    if short:
+        fail("; ".join(short))
+    out.update(cw_step_ms=ms / CW_STEPS, cw_peak_memory_gib=peak, cw_successes=wins,
+               cw_big_c_successes=big_wins)
+    log(f"  cw_step_ms {ms / CW_STEPS:.3f} [{card}] (c 1e-4, batch {CLF_N} at 1024^2, mean of "
+        f"{CW_STEPS} steps)")
+    log(f"  cw_peak_memory_gib {peak:.3f} [{card}]")
+    log(f"  CW successes {wins} of {CLF_N} at c 1e-4 (not gated), {big_wins} at c "
+        f"{CW_BIG_C:g} ({CW_BIG_STEPS} steps); best_l2 {best_l2.tolist()} / {big_l2.tolist()}")
+
+    # (3) ViT PGD
+    vit_pgd = make_pgd(ce_of(vit_fn), dataclasses.replace(cfg, steps=VIT_STEPS))
+    make_pgd(ce_of(vit_fn), dataclasses.replace(cfg, steps=1))(xv, gen, vit, vit_labels)
+    before = ops.launch_counts()
+    (vadv, vtrace), ms, peak = _timed(torch, lambda: vit_pgd(xv, gen, vit, vit_labels))
+    vit_counts = _diff(ops.launch_counts(), before)
+    vdev = _check_pgd_run(torch, "ViT PGD", xv, vadv, vtrace)
+    with torch.no_grad():
+        vflips = int((vit_fn(vit, vadv).argmax(-1) != vit_labels).sum())
+    out.update(vit_pgd_step_ms=ms / VIT_STEPS, vit_pgd_peak_memory_gib=peak,
+               vit_pgd_flips=vflips)
+    log(f"  vit_pgd_step_ms {ms / VIT_STEPS:.3f} [{card}] (ViT-B/16 at 224^2, 196 labels, "
+        f"batch {VIT_N} at {VIT_SIZE}^2, bf16, mean of {VIT_STEPS} steps)")
+    log(f"  vit_pgd_peak_memory_gib {peak:.3f} [{card}]")
+    log(f"  CE {vtrace[0].item():.6f} -> {vtrace[-1].item():.6f}; max |adv - x| {vdev:.6f}; "
+        f"labels flipped {vflips} of {VIT_N} (not gated)")
+
+    # (4) the first five clean and PGD crops into fusion, as adv_generate
+    before = ops.launch_counts()
+    with torch.no_grad():
+        clean = pipe.get_latents(x[:TRANSFER_N])
+        attacked = pipe.get_latents(adv[:TRANSFER_N])
+        fused, metrics = {}, {}
+        for m in FUSION_MODES:
+            benign = benign_fusion(pipe.drawer, clean, m)[0]
+            part = partial_adv_fusion(pipe.drawer, clean, attacked, m)
+            fused[m] = (benign, part)
+            metrics[m] = [v.tolist() for v in fused_image_metrics(pipe, benign, part)]
+    transfer_counts = _diff(ops.launch_counts(), before)
+    for m, (benign, part) in fused.items():
+        if not (_fuse_ok(torch, benign) and _fuse_ok(torch, part, TRANSFER_N + 1)):
+            fail(f"the {m} transfer fusions are not finite 1024^2 images")
+        log(f"  transfer {m}: partial metrics mse {metrics[m][0]}, vgg {metrics[m][1]}, "
+            f"ssim {metrics[m][2]}")
+
+    # (5) realism of the clean and all-adversarial fusions, both modes
+    batch = torch.cat([t for m in FUSION_MODES for t in (fused[m][0], fused[m][1][-1:])])
+    with torch.no_grad():
+        realism_scores(disc, batch)  # warm-up
+        scores, ms, peak = _timed(torch, lambda: [realism_scores(disc, batch)
+                                                  for _ in range(REALISM_REPS)][-1])
+    if tuple(scores.shape) != (len(batch),) or not torch.isfinite(scores).all():
+        fail(f"realism scores {scores.tolist()} not finite or of the wrong shape")
+    out.update(realism_ms=ms / REALISM_REPS, realism_peak_memory_gib=peak,
+               realism_scores=scores.float().tolist(), transfer_metrics=metrics)
+    log(f"  realism_ms {ms / REALISM_REPS:.3f} [{card}] (config-f 1024^2 discriminator, batch "
+        f"{len(batch)}, bf16, mean of {REALISM_REPS})")
+    log(f"  realism_peak_memory_gib {peak:.3f} [{card}]")
+    log(f"  realism scores (spatial clean, spatial adversarial, arithmetic clean, arithmetic "
+        f"adversarial): {scores.float().tolist()}")
+
+    launches = ops.launch_counts()
+    out["classifier_phase_s"] = time.perf_counter() - t_phase
+    short = classifier_launch_failures(pgd_counts, cw_counts, vit_counts, transfer_counts)
+    if short:
+        fail("; ".join(short))
+    per_step = {k: v / CLF_STEPS for k, v in pgd_counts.items()}
+    per_step["fused_adam"] = cw_counts["fused_adam"] / CW_STEPS
+    log(f"  launches {launches} (resnet PGD {pgd_counts}; CW {cw_counts}; ViT PGD "
+        f"{vit_counts}; transfer fusions {transfer_counts}); phase 5e "
+        f"{out['classifier_phase_s']:.1f} s [{card}]")
+    cw1 = cw_of(CWConfig(steps=1))
+    vit1 = make_pgd(ce_of(vit_fn), dataclasses.replace(cfg, steps=1))
+    steps = {"classifier_pgd_step_ms": lambda: pgd1(x, gen, resnet, labels),
+             "cw_step_ms": lambda: cw1(x, labels, resnet),
+             "vit_pgd_step_ms": lambda: vit1(xv, gen, vit, vit_labels),
+             "realism_ms": lambda: realism_scores(disc, batch)}
+    return launches, per_step, out, steps
+
+
 def time_blender(torch, card, pipe, reps=5):
     """One full-width blender forward + backward (5 internal nodes x 26 style
     layers, batch 1, the pipeline's compute dtype): host ms until the calls
@@ -1634,6 +2046,12 @@ def main() -> None:
     pa_launches, pa_per_step, pa_numbers, pa_batch = run_patch_path(torch, card, attack_args[0])
     main_numbers.update(pa_numbers)
 
+    log("== 5e. main path: classifier transfer at full width: resnet18 PGD and CW on 8 x "
+        "1024^2, ViT-B/16 PGD on 8 x 512^2, the PGD crops fused, a 1024^2 discriminator")
+    cl_launches, cl_per_step, cl_numbers, cl_step = run_classifier_path(
+        torch, card, attack_args[0])
+    main_numbers.update(cl_numbers)
+
     from tpufusion_torch.attacks.fusion_attack import make_fusion_attack
 
     pipe, cfg, inputs, target, gen = attack_args
@@ -1663,6 +2081,15 @@ def main() -> None:
         log(f"  per patch inner step: device busy {pa_profile['device_ms'] / PATCH_COUNT:.3f} ms, "
             f"{pa_profile['kernel_launches'] / PATCH_COUNT:.1f} kernel launches [{card}]")
 
+    log("== 6e. where the time goes: one classifier PGD step, one CW step, one ViT PGD "
+        "step and one realism batch under torch.profiler")
+    cl_profile = {}
+    for metric, run in cl_step.items():
+        log(f"  -- {metric}")
+        with torch.no_grad() if metric == "realism_ms" else contextlib.nullcontext():
+            cl_profile[metric] = profile_step(torch, run, step_ms=main_numbers[metric],
+                                              what=metric)
+
     # after the main paths, so that a training-style backward's allocations
     # and cuDNN plans leave their times and peak memories as they were
     log("== 3b. the weight grad through styled_conv's and the generator's backward")
@@ -1671,14 +2098,15 @@ def main() -> None:
     kernels = summarize(records, {"pgd": (launches, per_step),
                                   "whitebox": (wb_launches, wb_per_step),
                                   "spatial": (sp_launches, sp_per_step),
-                                  "patch": (pa_launches, pa_per_step)})
+                                  "patch": (pa_launches, pa_per_step),
+                                  "classifier": (cl_launches, cl_per_step)})
     out_dir = os.path.join(HERE, "runs", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
         json.dump(dict(card=card, records=records, kernels=kernels, main=main_numbers,
                        profile=profile, whitebox_profile=wb_profile,
                        spatial_profile=sp_profile,
-                       patch_profile=pa_profile,
+                       patch_profile=pa_profile, classifier_profile=cl_profile,
                        weight_grad_chain=chain), f, indent=1)
     log(card)
     log(json.dumps({"kernels": kernels}))

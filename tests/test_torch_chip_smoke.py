@@ -197,3 +197,80 @@ def test_patch_batch_check(smoke, monkeypatch, trace, patch, descent, expect):
     smoke._check_patch_batch(torch, "batch", img, torch.full((2, 2, 3), patch),
                              torch.tensor(trace), descent)
     assert failures == [] if expect is None else (len(failures) == 1 and expect in failures[0])
+
+
+CLASSIFIER_PGD = {"styled_conv": 0, "conv3x3_fwd": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
+                  "pgd_update": 100, "fused_adam": 0}
+CLASSIFIER_CW = {**CLASSIFIER_PGD, "pgd_update": 0, "fused_adam": 200}
+CLASSIFIER_FUSE = {**CLASSIFIER_PGD, "pgd_update": 0, "styled_conv": 108}
+
+
+@pytest.mark.parametrize("run,change,expect", [
+    (None, {}, None),
+    ("pgd", {"pgd_update": 99}, "resnet PGD (100 steps) launched pgd_update 99"),
+    ("pgd", {"fused_adam": 1}, "resnet PGD (100 steps) launched pgd_update 100 and fused_adam 1"),
+    ("vit", {"pgd_update": 0}, "ViT PGD (100 steps) launched pgd_update 0"),
+    ("cw", {"fused_adam": 199}, "CW (200 steps) launched fused_adam 199"),
+    ("cw", {"pgd_update": 2}, "and pgd_update 2 times"),
+    ("fuse", {"styled_conv": 0}, "styled_conv no time"),
+    ("fuse", {"conv3x3_wgrad": 3}, "the transfer fusions launched the weight grad 3"),
+])
+def test_classifier_launch_check(smoke, run, change, expect):
+    runs = {"pgd": CLASSIFIER_PGD, "cw": CLASSIFIER_CW, "vit": CLASSIFIER_PGD,
+            "fuse": CLASSIFIER_FUSE}
+    if run:
+        runs[run] = {**runs[run], **change}
+    short = smoke.classifier_launch_failures(runs["pgd"], runs["cw"], runs["vit"], runs["fuse"])
+    assert short == [] if expect is None else (len(short) == 1 and expect in short[0])
+
+
+def test_cw_bookkeeping_check(smoke):
+    images = torch.linspace(-0.5, 0.5, 2 * 4 * 4 * 3).reshape(2, 4, 4, 3)
+    adv = images.clone()
+    adv[1] += 0.1
+    l2 = torch.tensor([math.inf, ((adv[1] - images[1]) ** 2).sum().item()])
+    assert smoke.cw_bookkeeping_failures(torch, images, adv, l2, "cw") == []
+    moved = adv.clone()
+    moved[0, 0, 0, 0] += 1e-7  # an image without success must stay bit for bit
+    assert "has moved" in smoke.cw_bookkeeping_failures(torch, images, moved, l2, "cw")[0]
+    off = smoke.cw_bookkeeping_failures(torch, images, adv, l2 * (1 + 1e-4), "cw")
+    assert len(off) == 1 and "not the L2" in off[0]
+    out = smoke.cw_bookkeeping_failures(torch, images, adv * 4, torch.full((2,), math.inf), "cw")
+    assert any("leaves [-1, 1]" in f for f in out)
+
+
+def test_cw_margins_are_the_attacks(smoke):
+    from tpufusion_torch.attacks.cw import CWConfig, make_cw
+
+    logits = torch.tensor([[2.0, 0.5, 1.0], [0.0, 3.0, -1.0]])
+    labels = torch.tensor([0, 2], dtype=torch.int32)
+    assert smoke._cw_margins(torch, logits, labels).tolist() == [1.0, -4.0]
+    # an image whose clean margin is already met is its own best iterate
+    x = torch.zeros(2, 1, 1, 3)
+    adv, l2 = make_cw(lambda im: logits, CWConfig(steps=1))(x, labels)
+    assert torch.isinf(l2[0]) and l2[1].item() < 1e-9 and torch.equal(adv, x)
+
+
+def test_summarize_carries_the_classifier_run(smoke):
+    """The phase-5e path's launches enter every entry; pgd_update and
+    fused_adam timed at its 8 x 1024^2 x 3 shape carry it under
+    ``classifier``."""
+    records = [_record("pgd_update", "pgd", 0.04, dtype="float32"),
+               _record("pgd_update", "classifier", 0.15, dtype="float32"),
+               _record("fused_adam", "whitebox", 0.15, dtype="float32", lib=0.17),
+               _record("fused_adam", "classifier", 0.25, dtype="float32", lib=0.28)]
+    keys = tuple(CLASSIFIER_PGD)
+    total = {k: CLASSIFIER_PGD[k] + CLASSIFIER_CW[k] + CLASSIFIER_PGD[k] + CLASSIFIER_FUSE[k]
+             for k in keys}
+    per_step = {**{k: CLASSIFIER_PGD[k] / 100 for k in keys}, "fused_adam": 1.0}
+    runs = {"pgd": (dict(zip(keys, (81, 12, 12, 0, 6, 0))), dict(zip(keys, (9, 2, 2, 0, 1, 0)))),
+            "whitebox": (dict(zip(keys, (45, 10, 10, 0, 0, 5))),
+                         dict(zip(keys, (9, 2, 2, 0, 0, 1)))),
+            "classifier": (total, per_step)}
+    by_name = {k["name"]: k for k in smoke.summarize(records, runs)}
+    pgd, adam = by_name["pgd_update"], by_name["fused_adam"]
+    assert pgd["launches_classifier_path"] == 200 and pgd["launches"] == 206
+    assert pgd["launches_per_classifier_step"] == 1 and pgd["classifier"]["ms"] == 0.15
+    assert adam["launches_classifier_path"] == 200 and adam["launches_per_classifier_step"] == 1
+    assert adam["classifier"]["library_ms"] == 0.28 and adam["ms"] == 0.15
+    assert by_name["styled_conv"]["launches_classifier_path"] == 108

@@ -70,9 +70,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from tpufusion_torch.core.prng import PRNGPool, seed_everything
     from tpufusion_torch.models.fusion_hierarchy import HierarchyBlender
     from tpufusion_torch.models.lpips import LPIPS, load_torch_lpips
+    from tpufusion_torch.models.classifiers import create_vit_classifier, load_gender_classifier
+    from tpufusion_torch.models.discriminator import create_discriminator
+    from tpufusion_torch.models.resnet import create_resnet18
     from tpufusion_torch.models.stylegan2 import Generator
     from tpufusion_torch.models.vgg16 import VGG16
-    from tpufusion_torch.pipeline import FusionPipeline
+    from tpufusion_torch.models.vit import create_vit
+    from tpufusion_torch.pipeline import FusionPipeline, create_test_pipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     img = np.zeros((1, 8, 8, 3), np.float32)
@@ -88,6 +92,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                   lambda: LPIPS(),
                   lambda: PRNGPool(),
                   lambda: seed_everything(),
+                  lambda: create_resnet18(),
+                  lambda: load_gender_classifier(None),
+                  lambda: create_vit(8, image_size=32, patch_size=8, hidden_size=32,
+                                     num_layers=1, num_heads=2, intermediate_size=64),
+                  lambda: create_vit_classifier(8, image_size=32, patch_size=8,
+                                                hidden_size=32, num_layers=1, num_heads=2,
+                                                intermediate_size=64),
+                  lambda: create_discriminator(32, channel_multiplier=1),
+                  lambda: create_test_pipeline(),
+                  # before it reads the directory
+                  lambda: FusionPipeline.load("no-such-directory"),
                   # the eval entry points run arrays on the card unless asked
                   lambda: ev.mse_per_image(img, img),
                   lambda: ev.input_noise_mse(img, img),

@@ -49,8 +49,10 @@ def make_pgd(loss_fn: Callable, config: PGDConfig, *, external_start: bool = Fal
             adv = adv.detach().requires_grad_(True)
             loss = sign * loss_fn(adv, *loss_args)
             (g,) = torch.autograd.grad(loss, adv)
-            # ascend: pgd_update adds alpha*sign(grad) of `sign*loss`
-            adv = pgd_update(adv.detach(), g, images, cfg.alpha, cfg.eps,
+            # ascend: pgd_update adds alpha*sign(grad) of `sign*loss`; a
+            # gradient through a channels-first op (the classifiers' resize)
+            # can come back strided, and the kernel reads contiguous memory
+            adv = pgd_update(adv.detach(), g.contiguous(), images, cfg.alpha, cfg.eps,
                              cfg.clip_min, cfg.clip_max)
             trace.append(sign * loss.detach())
         return adv, torch.stack(trace)

@@ -10,12 +10,26 @@ JAX package.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from tpufusion_torch.core.dtypes import resolve_device
 
 GLOBAL_SEED = 123456789  # mirrors reference setup_seed(123456789)
+
+_PHI_MINUS_2 = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+
+
+def truncated_normal(shape, std: float, device=None, generator=None) -> torch.Tensor:
+    """A normal of scale ``std`` truncated at two scales, as flax draws its
+    ``truncated_normal`` initialisers: the standard normal restricted to
+    [-2, 2] by inverting its CDF on a uniform draw from ``generator``, times
+    ``std``."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = (2 * _PHI_MINUS_2 - 1) + u * (2 - 4 * _PHI_MINUS_2)
+    return (torch.erfinv(u) * (std * math.sqrt(2.0))).clamp(-2 * std, 2 * std)
 
 
 class PRNGPool:

@@ -47,6 +47,22 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class Linear(nn.Module):
+    """``nn.Linear`` parameters (``weight`` (out, in), ``bias``), computed in
+    the input's dtype; the weight drawn LeCun-normal from ``generator``, the
+    bias zero."""
+
+    def __init__(self, fan_in, fan_out, *, device=None, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.randn((fan_out, fan_in), generator=generator, device=device)
+            / math.sqrt(fan_in))
+        self.bias = nn.Parameter(torch.zeros(fan_out, device=device))
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class FrozenBatchNorm(nn.Module):
     """Inference-mode BatchNorm: y = scale*(x-mean)/sqrt(var+eps) + bias, with
     ``nn.BatchNorm2d``'s state-dict names."""

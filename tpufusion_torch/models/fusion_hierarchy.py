@@ -39,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpufusion_torch.core.dtypes import resolve_device
+from tpufusion_torch.core.prng import truncated_normal
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,16 +112,13 @@ def get_all_active_parts(tree: Dict[str, PartNode], root: str = "all"):
 # flax's lecun_normal: a normal truncated to +-2 std, its std corrected so
 # that the truncated draw has variance 1 / fan_in
 _TRUNC_STD = 0.87962566103423978
-_PHI_MINUS_2 = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
 
 
 def _lecun_normal(fan_out, fan_in, device, generator):
     """An (out, in) weight drawn as flax's default ``Dense`` kernel is:
     LeCun normal, truncated at two standard deviations."""
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    u = torch.rand((fan_out, fan_in), generator=generator, device=device)
-    u = (2 * _PHI_MINUS_2 - 1) + u * (2 - 4 * _PHI_MINUS_2)
-    return (torch.erfinv(u) * (std * math.sqrt(2.0))).clamp(-2 * std, 2 * std)
+    return truncated_normal((fan_out, fan_in), math.sqrt(1.0 / fan_in) / _TRUNC_STD,
+                            device, generator)
 
 
 class Dense(nn.Module):
@@ -219,15 +217,17 @@ def fusion_net_state_from_jax(node_params: dict) -> dict:
             for key, name in (("kernel", "weight"), ("bias", "bias"))}
 
 
-def _unflatten(flat):
-    tree = {}
-    for key, v in flat.items():
-        parts = key.split("/")
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = v
-    return tree
+def fusion_net_state_to_jax(state: dict) -> dict:
+    """The inverse of ``fusion_net_state_from_jax``: a ``FusionNet`` state
+    dict ``{"gate{i}_fc{1,2}.{weight, bias}"}`` -> ``{"params": {layer:
+    {kernel (in, out), bias}}}`` of numpy arrays."""
+    params: dict = {}
+    for key, t in state.items():
+        layer, kind = key.split(".")
+        t = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+        params.setdefault(layer, {})["kernel" if kind == "weight" else "bias"] = (
+            np.ascontiguousarray(t.T) if kind == "weight" else t)
+    return {"params": params}
 
 
 class HierarchyBlender(nn.Module):
@@ -273,6 +273,8 @@ class HierarchyBlender(nn.Module):
         (exact); ``.pt`` / ``.pth`` are the reference's torch fusion nets,
         ingested as opaque chained MLPs (``_ingest_torch_fusion_net``); the
         report records each node's match quality."""
+        from tpufusion_torch.io.params_io import load_pytree  # io imports this module
+
         with open(manifest_path) as f:
             manifest = json.load(f)
         root = os.path.dirname(os.path.abspath(manifest_path))
@@ -287,9 +289,7 @@ class HierarchyBlender(nn.Module):
                 if not node_rep.get("validated"):
                     report["approx"] = True
             else:
-                with np.load(path) as data:
-                    params = _unflatten(dict(data))
-                self.nets[name] = self._net_from_npz(params)
+                self.nets[name] = self._net_from_npz(load_pytree(path))
                 report["nodes"][name] = dict(format="npz", exact=True)
         torch_nodes = {n: r for n, r in report["nodes"].items() if r.get("format") == "torch"}
         bad = {n: r.get("layers_served") for n, r in torch_nodes.items()
@@ -307,6 +307,27 @@ class HierarchyBlender(nn.Module):
                   "gating convention inferred from widths")
         self.load_report = report
         return report
+
+    def jax_params(self) -> dict:
+        """Every node net as the JAX package's blend params ``{node:
+        {"params": ...}}`` (numpy; ``{"__even_blend__": True}`` for an even
+        blend). An ingested torch net has no such form and raises."""
+        out = {}
+        for name, net in self.nets.items():
+            if isinstance(net, EvenBlend):
+                out[name] = {"__even_blend__": np.asarray(True)}
+            elif isinstance(net, FusionNet):
+                out[name] = fusion_net_state_to_jax(net.state_dict())
+            else:
+                raise ValueError(f"node {name!r} holds an ingested torch net; "
+                                 "keep its .pt checkpoint in the manifest")
+        return out
+
+    def load_jax_params(self, blend_params: dict) -> None:
+        """Set the node nets from the JAX package's blend params (the
+        ``jax_params`` form, arrays or numpy)."""
+        for name, params in blend_params.items():
+            self.nets[name] = self._net_from_npz(params)
 
     def _net_from_npz(self, params: dict) -> nn.Module:
         if "__even_blend__" in params:
@@ -365,23 +386,12 @@ class HierarchyBlender(nn.Module):
         """Write each node as ``fusion_net_{node}.npz`` in the JAX package's
         format and the manifest naming them; returns the manifest's path.
         An ingested torch net has no such format: save its ``.pt`` instead."""
+        from tpufusion_torch.io.params_io import save_pytree  # io imports this module
+
         os.makedirs(out_dir, exist_ok=True)
         manifest = {}
-        for name, net in self.nets.items():
-            if isinstance(net, EvenBlend):
-                flat = {"__even_blend__": np.asarray(True)}
-            elif isinstance(net, FusionNet):
-                flat = {}
-                for key, t in net.state_dict().items():
-                    layer, kind = key.split(".")
-                    t = t.detach().cpu().numpy()
-                    flat[f"params/{layer}/" + ("kernel" if kind == "weight" else "bias")] = (
-                        t.T if kind == "weight" else t)
-            else:
-                raise ValueError(f"node {name!r} holds an ingested torch net; "
-                                 "keep its .pt checkpoint in the manifest")
-            path = os.path.join(out_dir, f"fusion_net_{name}.npz")
-            np.savez(path, **flat)
+        for name, params in self.jax_params().items():
+            path = save_pytree(params, os.path.join(out_dir, f"fusion_net_{name}.npz"))
             manifest[name] = os.path.basename(path)
         mpath = os.path.join(out_dir, manifest_name)
         with open(mpath, "w") as f:

@@ -13,6 +13,7 @@ from tpufusion_torch.ops.composite import masked_composite
 from tpufusion_torch.ops.modconv import modulated_conv2d
 from tpufusion_torch.ops.upfirdn2d import (
     blur,
+    downsample_2x,
     make_blur_kernel,
     upfirdn2d,
     upsample_2x,
@@ -42,7 +43,7 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "adam_update", "blur", "conv3x3", "launch_counts", "make_blur_kernel",
+    "adam_update", "blur", "conv3x3", "downsample_2x", "launch_counts", "make_blur_kernel",
     "masked_composite", "modulated_conv2d", "pgd_update", "reset_launch_counts",
     "styled_conv", "upfirdn2d", "upsample_2x",
 ]

@@ -3,7 +3,8 @@
 
 All public tensors are NHWC. Padding/gain conventions follow rosinality:
 
-- ``upsample_2x``: pad = ((p+1)//2 + 1, p//2), p = len(k) - 2, gain 4.
+- ``upsample_2x``:   pad = ((p+1)//2 + 1, p//2), p = len(k) - 2, gain 4.
+- ``downsample_2x``: pad = ((p+1)//2, p//2),     p = len(k) - 2, gain 1.
 """
 
 from __future__ import annotations
@@ -58,3 +59,9 @@ def upsample_2x(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     p = k.shape[0] - 2
     return upfirdn2d(x, k, up=2, down=1, pad=((p + 1) // 2 + 1, p // 2))
 
+
+def downsample_2x(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
+    """Anti-aliased 2x downsample (rosinality ``Downsample``)."""
+    k = make_blur_kernel(taps, gain=1.0, device=x.device)
+    p = k.shape[0] - 2
+    return upfirdn2d(x, k, up=1, down=2, pad=((p + 1) // 2, p // 2))
