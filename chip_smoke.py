@@ -73,6 +73,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    step, CW step, ViT PGD step and realism batch (6e), from torch.profiler,
    with the step's kernel launches; 6c also times one full-width blender
    forward + backward;
+5f. the attack_run CLI at full width (run after 6-6e and 3b, so that
+   every earlier number reads as before): 5 synthetic 1024^2 faces written
+   as PNGs; the packaged landmark net on the card held to the CPU within
+   1 px at 1024^2 (landmarks and alignment-quad corners); then
+   ``tpufusion_torch.cli.attack_run.main`` in this process with
+   ``--images_dir --align`` and fusion_pgd_arith, white_box_target and blur
+   (2 steps each), building its own config-f 1024^2 pipeline, with the
+   launch counts read around the call, each attack's time, and its run
+   folders checked (parameters, finite results.jsonl, readable
+   new_mask.xlsx, 5 x 1024^2 all_adv_inputs.npz, the PGD images in the
+   eps-ball and [-1, 1]); then ``invert`` and ``fuse`` at --tiny on the
+   card;
 7. the kernels line (JSON, one object) and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -418,8 +430,9 @@ def _numbers(rs, path="pgd"):
 def summarize(records, runs):
     """One entry per kernel source: launches on the main paths and
     ``_numbers``. ``runs`` maps each main path ("pgd", "whitebox",
-    "spatial", "patch") to its (launch counts, launches per step; per inner
-    step on the patch path); ``launches`` is
+    "spatial", "patch", "classifier", "cli") to its (launch counts, launches
+    per step; per inner step on the patch path; None for the CLI's whole
+    run, which has no one step); ``launches`` is
     their sum. The numbers at the top of an entry are those of the kernel's
     home path (the fusion PGD path, or the white-box path for fused_adam);
     another path's shapes, where it has its own, are under its name (the
@@ -442,7 +455,8 @@ def summarize(records, runs):
         out = {"launches": sum(runs[p][0][k] for p in runs for k in keys)}
         for path, (counts, per_step) in runs.items():
             out[f"launches_{path}_path"] = sum(counts[k] for k in keys)
-            out[f"launches_per_{path}_step"] = sum(per_step[k] for k in keys)
+            if per_step is not None:
+                out[f"launches_per_{path}_step"] = sum(per_step[k] for k in keys)
         return out
 
     def entry(name, source, replaces, keys, home="pgd"):
@@ -1840,6 +1854,261 @@ def run_classifier_path(torch, card, pipe):
     return launches, per_step, out, steps
 
 
+# ---------------------------------------------------------------------------
+# phase 5f: the attack_run CLI at full width, images on disk, --align
+# ---------------------------------------------------------------------------
+
+CLI_N = 5  # the ffhq fusion roles
+CLI_FACE_SEED = 5
+CLI_ATTACKS = ("fusion_pgd_arith", "white_box_target", "blur")
+CLI_STEPS = 2  # --pgd_steps and --n_iters
+# AttackRunConfig's pgd_eps (8/255) doubled for the [-1, 1] range, as the
+# runner does
+CLI_EPS = 8.0 / 255.0 * 2.0
+CLI_PGD_ATTACKS = ("fusion_pgd_arith",)
+# the kernels the CLI's attacks must launch: the fusion PGD's synthesis,
+# its backward's 32/64-channel convs and pixel update; the white-box Adam
+CLI_KERNELS = ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "pgd_update", "fused_adam")
+# the landmark net on the card against the CPU, in pixels of a 1024^2 image,
+# landmarks and the alignment quad's corners
+LANDMARK_TOL_PX = 1.0
+
+
+def cli_launch_failures(launches):
+    """What phase 5f's launch counts fall short of: each kernel of
+    ``CLI_KERNELS`` launched at least once by the CLI's run."""
+    return [f"phase 5f launched {k} no time" for k in CLI_KERNELS if launches.get(k, 0) <= 0]
+
+
+def landmark_failures(card_pts, cpu_pts, tol=LANDMARK_TOL_PX):
+    """The largest landmark and quad-corner distance (pixels) between the
+    card's and the CPU's landmarks of each image, and what exceeds ``tol``."""
+    from tpufusion_torch.data.alignment import alignment_quad
+
+    lm = max(float(abs(a - b).max()) for a, b in zip(card_pts, cpu_pts))
+    quad = max(float(abs(alignment_quad(a)[0] - alignment_quad(b)[0]).max())
+               for a, b in zip(card_pts, cpu_pts))
+    out = [f"landmarks on the card differ from the CPU's by {v:.4f} px > {tol} ({what})"
+           for what, v in (("landmarks", lm), ("quad corners", quad)) if not v <= tol]
+    return lm, quad, out
+
+
+def _finite_numbers(obj):
+    if isinstance(obj, (list, tuple)):
+        return all(_finite_numbers(v) for v in obj)
+    if isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        return math.isfinite(obj)
+    return True
+
+
+def cli_run_failures(root, attacks, n, size, eps=CLI_EPS, pgd_attacks=CLI_PGD_ATTACKS):
+    """What the CLI's run folders under ``root`` (its ``save_dir/ffhq``)
+    fall short of: one ``<k>_ffhq_<attack>...`` folder per attack, holding
+    ``parameters.txt``, a ``results.jsonl`` of finite numbers with N and N+1
+    entries, a readable ``new_mask.xlsx`` of N + 6 (N+1) columns, and
+    ``adversarial/all_inputs.npz`` and ``all_adv_inputs.npz`` with N finite
+    images of ``size``^2; a PGD attack's images lie within ``eps`` of the
+    inputs and inside [-1, 1]."""
+    import numpy as np
+
+    from tpufusion_torch.io.xlsx import read_xlsx
+
+    out = []
+    names = sorted(os.listdir(root)) if os.path.isdir(root) else []
+    for attack in attacks:
+        dirs = [d for d in names if re.fullmatch(rf"\d+_ffhq_{attack}(_.*)?", d)]
+        if len(dirs) != 1:
+            out.append(f"{attack}: {len(dirs)} run folders under {root}, expected 1")
+            continue
+        run = os.path.join(root, dirs[0])
+        if not os.path.isfile(os.path.join(run, "parameters.txt")):
+            out.append(f"{attack}: no parameters.txt")
+        try:
+            with open(os.path.join(run, "results.jsonl")) as f:
+                rows = [json.loads(line) for line in f if line.strip()]
+        except (OSError, ValueError) as e:
+            out.append(f"{attack}: results.jsonl unreadable ({e})")
+            rows = []
+        if not rows:
+            out.append(f"{attack}: results.jsonl holds no row")
+        for r in rows:
+            if not _finite_numbers(list(r.values())):
+                out.append(f"{attack}: results.jsonl holds a non-finite value: {r}")
+            if any(len(r.get(k, ())) != n + 1 for k in (
+                    "cri_spatial", "cri_arith", "vg_spatial", "vg_arith",
+                    "ssim_spatial", "ssim_arith")):
+                out.append(f"{attack}: a results.jsonl row lacks N+1 = {n + 1} entries")
+        try:
+            cols, table = read_xlsx(os.path.join(run, "new_mask.xlsx"))
+            if len(cols) != n + 6 * (n + 1) or len(table) != len(rows):
+                out.append(f"{attack}: new_mask.xlsx has {len(cols)} columns and "
+                           f"{len(table)} rows")
+        except Exception as e:  # any reader error is a finding of the run
+            out.append(f"{attack}: new_mask.xlsx unreadable ({e})")
+        arrays = {}
+        for name in ("all_inputs", "all_adv_inputs"):
+            try:
+                with np.load(os.path.join(run, "adversarial", f"{name}.npz")) as f:
+                    arrays[name] = f["data"]
+            except (OSError, KeyError, ValueError) as e:
+                out.append(f"{attack}: adversarial/{name}.npz unreadable ({e})")
+        if len(arrays) < 2:
+            continue
+        x, adv = arrays["all_inputs"], arrays["all_adv_inputs"]
+        for name, a in arrays.items():
+            if a.shape != (n, size, size, 3) or not np.isfinite(a).all():
+                out.append(f"{attack}: {name} has shape {a.shape} or non-finite values, "
+                           f"expected ({n}, {size}, {size}, 3)")
+        if attack in pgd_attacks and adv.shape == x.shape:
+            dev = float(np.abs(adv - x).max())
+            if not dev <= eps + 1e-6:
+                out.append(f"{attack}: adv leaves the eps-ball ({dev} > {eps})")
+            if not (adv.min() >= -1.0 and adv.max() <= 1.0):
+                out.append(f"{attack}: adv leaves [-1, 1]")
+    return out
+
+
+def _write_faces(directory, n, size, seed=CLI_FACE_SEED):
+    """``n`` synthetic faces of ``size``^2 (the port's ``synth_face_batch``,
+    photometric augmentation on) as PNGs under ``directory``."""
+    import numpy as np
+    from PIL import Image
+
+    from tpufusion_torch.core.imaging import to_uint8
+    from tpufusion_torch.models.landmarks import synth_face_batch
+
+    os.makedirs(directory, exist_ok=True)
+    imgs, _ = synth_face_batch(np.random.RandomState(seed), n, size, augment=True)
+    paths = []
+    for i, img in enumerate(imgs):
+        paths.append(os.path.join(directory, f"face_{i}.png"))
+        Image.fromarray(to_uint8(img)).save(paths[-1])
+    return paths
+
+
+def run_cli_path(torch, card):
+    """Phase 5f: 5 synthetic 1024^2 faces written as PNGs; the packaged
+    landmark net on the card held to the CPU (landmarks and quad corners,
+    1 px), the bf16 variant's distance printed beside it; then
+    ``tpufusion_torch.cli.attack_run.main`` in this process with ``--align``
+    and three attacks, building its own full-width pipeline, with the launch
+    counts set to 0 just before and read just after, each attack's time, the
+    run folders checked; then ``invert`` and ``fuse`` at ``--tiny`` on the
+    card. Returns the launch counts and the numbers."""
+    import shutil
+
+    from tpufusion_torch import ops, runner
+    from tpufusion_torch.cli import attack_run, fuse, invert
+    from tpufusion_torch.core.dtypes import Policy
+    from tpufusion_torch.data.alignment import align_face
+    from tpufusion_torch.models.landmarks import (
+        load_packaged_landmark_net, make_landmark_provider)
+
+    work = os.path.join(HERE, "runs", "chip_smoke", "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    faces = _write_faces(os.path.join(work, "faces"), CLI_N, 1024)
+    log(f"  wrote {CLI_N} synthetic 1024^2 faces in {time.perf_counter() - t0:.2f} s")
+
+    # the landmark net: card against CPU, and the card's alignment timed
+    net, size = load_packaged_landmark_net(device="cuda")
+    cpu_net, _ = load_packaged_landmark_net(device="cpu")
+    on_card = make_landmark_provider(net, net_input_size=size)
+    cpu_pts = [make_landmark_provider(cpu_net, net_input_size=size)(p) for p in faces]
+    on_card(faces[0])  # warm-up: cuDNN plans
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_pts = []
+    for p in faces:
+        card_pts.append(on_card(p))
+        align_face(p, card_pts[-1])
+    align_s = time.perf_counter() - t0
+    lm_px, quad_px, bad = landmark_failures(card_pts, cpu_pts)
+    if bad:
+        fail("; ".join(bad))
+    bf16 = load_packaged_landmark_net(device="cuda", policy=Policy(torch.bfloat16))[0]
+    bf16_pts = [make_landmark_provider(bf16, net_input_size=size)(p) for p in faces]
+    lm_bf16, quad_bf16, _ = landmark_failures(bf16_pts, cpu_pts)
+    log(f"  landmark net (float32) on the card vs the CPU: landmarks {lm_px:.6f} px, quad "
+        f"corners {quad_px:.6f} px (limit {LANDMARK_TOL_PX}); a bf16 net would give "
+        f"{lm_bf16:.6f} / {quad_bf16:.6f} px [{card}]")
+    log(f"  align_s {align_s:.3f} ({CLI_N} faces: landmarks + align_face, card) [{card}]")
+
+    # the CLI, with each attack's dispatch timed
+    attack_ms = {}
+    dispatch = runner.dispatch_attack
+
+    def timed_dispatch(pipeline, attack, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = dispatch(pipeline, attack, *a, **k)
+        torch.cuda.synchronize()
+        attack_ms[attack] = (time.perf_counter() - t) * 1e3
+        return out
+
+    save = os.path.join(work, "runs")
+    argv = ["--dataset", "ffhq", "--images_dir", os.path.dirname(faces[0]), "--align",
+            "--attacks", *CLI_ATTACKS, "--pgd_steps", str(CLI_STEPS), "--n_iters",
+            str(CLI_STEPS), "--max_num_fusion", "1", "--save_dir", save]
+    log(f"  python -m tpufusion_torch.cli.attack_run {' '.join(argv)}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runner.dispatch_attack = timed_dispatch
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = attack_run.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        runner.dispatch_attack = dispatch
+    cli_run_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if rc != 0:
+        fail(f"attack_run returned {rc}")
+    bad = cli_run_failures(os.path.join(save, "ffhq"), CLI_ATTACKS, CLI_N, 1024)
+    bad += cli_launch_failures(launches)
+    if bad:
+        fail("; ".join(bad))
+    log(f"  cli_run_s {cli_run_s:.3f} (pipeline build, load + align, 3 attacks with their "
+        f"evaluations and artifacts) [{card}]")
+    for attack in CLI_ATTACKS:
+        steps = "" if attack == "blur" else f", {CLI_STEPS} steps"
+        log(f"  {attack}_ms {attack_ms[attack]:.3f} (dispatch{steps}) [{card}]")
+    log(f"  cli_peak_memory_gib {peak_gib:.3f} (above the {base / 2 ** 30:.3f} GiB held "
+        f"before it) [{card}]")
+    log(f"  launches {launches}")
+
+    # invert and fuse at --tiny on the card
+    inv = os.path.join(work, "invert")
+    if invert.main(["--images_dir", os.path.dirname(faces[0]), "--dataset", "ffhq", "--tiny",
+                    "--size", "32", "--batch", str(CLI_N), "--save_dir", inv]) != 0:
+        fail("invert returned non-zero")
+    import numpy as np
+
+    with np.load(os.path.join(inv, "latents.npz")) as f:
+        lat = f["latents"]
+    inversions = sorted(os.listdir(os.path.join(inv, "inversions")))
+    if lat.shape[0] != CLI_N or not np.isfinite(lat).all() or len(inversions) != CLI_N:
+        fail(f"invert wrote latents {lat.shape} and {len(inversions)} inversions")
+    demo = os.path.join(work, "fused_demo.jpg")
+    if fuse.main(["--dataset", "ffhq", "--tiny", "--size", "32", "--out", demo]) != 0 \
+            or not os.path.isfile(demo):
+        fail("fuse wrote no montage")
+    log(f"  invert: latents {lat.shape}, {len(inversions)} inversions; fuse: {demo}")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches, dict(cli_run_s=cli_run_s, align_s=align_s, cli_peak_memory_gib=peak_gib,
+                          landmark_px=lm_px, quad_px=quad_px, landmark_bf16_px=lm_bf16,
+                          quad_bf16_px=quad_bf16,
+                          **{f"cli_{a}_ms": v for a, v in attack_ms.items()})
+
+
+# ---------------------------------------------------------------------------
+# phase 6: where the time goes
+# ---------------------------------------------------------------------------
+
+
 def time_blender(torch, card, pipe, reps=5):
     """One full-width blender forward + backward (5 internal nodes x 26 style
     layers, batch 1, the pipeline's compute dtype): host ms until the calls
@@ -2095,11 +2364,18 @@ def main() -> None:
     log("== 3b. the weight grad through styled_conv's and the generator's backward")
     chain = check_weight_grad_chain(torch)
 
+    # after every earlier phase, so that their numbers read as before
+    log("== 5f. the attack_run CLI at FFHQ 1024^2: 5 faces on disk, --align, "
+        f"{', '.join(CLI_ATTACKS)}, full width; invert and fuse at --tiny")
+    cli_launches, cli_numbers = run_cli_path(torch, card)
+    main_numbers.update(cli_numbers)
+
     kernels = summarize(records, {"pgd": (launches, per_step),
                                   "whitebox": (wb_launches, wb_per_step),
                                   "spatial": (sp_launches, sp_per_step),
                                   "patch": (pa_launches, pa_per_step),
-                                  "classifier": (cl_launches, cl_per_step)})
+                                  "classifier": (cl_launches, cl_per_step),
+                                  "cli": (cli_launches, None)})
     out_dir = os.path.join(HERE, "runs", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:

@@ -1,5 +1,6 @@
 """``chip_smoke.py``'s kernel check fails a kernel whose output is not finite;
-its summaries and launch checks, and phase 5d's patch-batch check.
+its summaries and launch checks, phase 5d's patch-batch check, and phase
+5f's checks of the CLI's run folders, launches and landmarks.
 
 The script's error helpers take ``torch`` as an argument and run on CPU
 tensors, so they are checked here without a card.
@@ -274,3 +275,113 @@ def test_summarize_carries_the_classifier_run(smoke):
     assert adam["launches_classifier_path"] == 200 and adam["launches_per_classifier_step"] == 1
     assert adam["classifier"]["library_ms"] == 0.28 and adam["ms"] == 0.15
     assert by_name["styled_conv"]["launches_classifier_path"] == 108
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: the attack_run CLI's run folders, launches and landmarks
+# ---------------------------------------------------------------------------
+
+CLI_COUNTS = {"styled_conv": 162, "conv3x3_fwd": 8, "conv3x3_dgrad": 8, "conv3x3_wgrad": 0,
+              "pgd_update": 2, "fused_adam": 2}
+
+
+@pytest.mark.parametrize("kernel", [None, "styled_conv", "conv3x3_fwd", "conv3x3_dgrad",
+                                    "pgd_update", "fused_adam"])
+def test_cli_launch_check(smoke, kernel):
+    counts = dict(CLI_COUNTS)
+    if kernel:
+        counts[kernel] = 0
+    assert smoke.cli_launch_failures(counts) == (
+        [f"phase 5f launched {kernel} no time"] if kernel else [])
+
+
+def test_summarize_carries_the_cli_run(smoke):
+    """The CLI's whole-run counts enter every entry under ``cli``, with no
+    per-step count (the run has no one step)."""
+    records = [_record("pgd_update", "pgd", 0.04, dtype="float32")]
+    keys = tuple(CLI_COUNTS)
+    runs = {"pgd": (dict(zip(keys, (81, 12, 12, 0, 6, 0))), dict(zip(keys, (9, 2, 2, 0, 1, 0)))),
+            "cli": (CLI_COUNTS, None)}
+    by_name = {k["name"]: k for k in smoke.summarize(records, runs)}
+    assert by_name["pgd_update"]["launches_cli_path"] == 2
+    assert by_name["pgd_update"]["launches"] == 8
+    assert "launches_per_cli_step" not in by_name["pgd_update"]
+    assert by_name["fused_adam"]["launches_cli_path"] == 2
+    assert by_name["conv3x3"]["parts"]["weight_grad"]["launches_cli_path"] == 0
+
+
+def _write_run(root, attack, n=2, size=4, *, eps_move=0.0, rows=1, cols=None, nan=False,
+               skip=()):
+    """A run folder as the runner writes it, with one fault to inject."""
+    import json
+
+    import numpy as np
+
+    from tpufusion_torch.io.xlsx import write_xlsx
+
+    run = os.path.join(root, f"0_ffhq_{attack}")
+    os.makedirs(os.path.join(run, "adversarial"))
+    if "parameters.txt" not in skip:
+        open(os.path.join(run, "parameters.txt"), "w").write("adversarial attack x\n")
+    lists = {k: [0.5] * (n + 1) for k in ("cri_spatial", "cri_arith", "vg_spatial",
+                                          "vg_arith", "ssim_spatial", "ssim_arith")}
+    if nan:
+        lists["vg_arith"][1] = float("nan")
+    with open(os.path.join(run, "results.jsonl"), "w") as f:
+        for b in range(rows):
+            f.write(json.dumps(dict(attack=attack, batch=b, noise_mse=0.1, **lists)) + "\n")
+    ncols = n + 6 * (n + 1) if cols is None else cols
+    write_xlsx(os.path.join(run, "new_mask.xlsx"), ["c"] * ncols, [[0.0] * ncols] * rows)
+    x = np.zeros((n, size, size, 3), np.float32)
+    np.savez(os.path.join(run, "adversarial", "all_inputs.npz"), data=x)
+    if "all_adv_inputs" not in skip:
+        np.savez(os.path.join(run, "adversarial", "all_adv_inputs.npz"), data=x + eps_move)
+    return run
+
+
+def test_cli_run_check_passes_a_good_run(smoke, tmp_path):
+    for attack in ("fusion_pgd_arith", "white_box_target", "blur"):
+        _write_run(str(tmp_path), attack, eps_move=0.05)
+    assert smoke.cli_run_failures(str(tmp_path), ("fusion_pgd_arith", "white_box_target",
+                                                  "blur"), 2, 4) == []
+
+
+@pytest.mark.parametrize("fault,expect", [
+    (dict(eps_move=0.2), "leaves the eps-ball"),
+    (dict(eps_move=-1.5), "leaves [-1, 1]"),
+    (dict(nan=True), "non-finite"),
+    (dict(cols=3), "new_mask.xlsx has 3 columns"),
+    (dict(skip=("parameters.txt",)), "no parameters.txt"),
+    (dict(skip=("all_adv_inputs",)), "all_adv_inputs.npz unreadable"),
+    (dict(size=8), "has shape (2, 8, 8, 3)"),
+    (dict(rows=0), "holds no row"),
+])
+def test_cli_run_check_fails_a_faulty_run(smoke, tmp_path, fault, expect):
+    _write_run(str(tmp_path), "fusion_pgd_arith", **fault)
+    bad = smoke.cli_run_failures(str(tmp_path), ("fusion_pgd_arith",), 2, 4)
+    assert any(expect in b for b in bad), bad
+
+
+def test_cli_run_check_wants_one_folder_per_attack(smoke, tmp_path):
+    _write_run(str(tmp_path), "blur")
+    bad = smoke.cli_run_failures(str(tmp_path), ("blur", "white_box_target"), 2, 4)
+    assert bad == [f"white_box_target: 0 run folders under {tmp_path}, expected 1"]
+    assert smoke.cli_run_failures(str(tmp_path / "none"), ("blur",), 2, 4) == [
+        f"blur: 0 run folders under {tmp_path / 'none'}, expected 1"]
+
+
+def test_landmark_check(smoke):
+    import numpy as np
+
+    from tpufusion_torch.models.landmarks import _canonical_template
+
+    cpu = [_canonical_template() * 1024]
+    lm, quad, bad = smoke.landmark_failures([cpu[0] + 0.25], cpu)
+    assert lm == pytest.approx(0.25) and quad == pytest.approx(0.25) and bad == []
+    moved = cpu[0].copy()
+    moved[36:42, 0] += 3.0  # one eye ring 3 px off: the quad moves too
+    lm, quad, bad = smoke.landmark_failures([moved], cpu)
+    assert lm == pytest.approx(3.0) and quad > 1.0 and len(bad) == 2
+    assert "landmarks" in bad[0] and "quad corners" in bad[1]
+    _, _, bad = smoke.landmark_failures([cpu[0] + np.float32(np.nan)], cpu)
+    assert len(bad) == 2

@@ -3,7 +3,8 @@
 - ``tpufusion_torch`` and every submodule import without ``jax`` or any
   ``tpufusion.*`` module (checked in a fresh interpreter), and no source file
   of the port, nor ``chip_smoke.py``, imports them;
-- entry points called without ``device=`` on a machine with no CUDA raise;
+- entry points called without ``device=`` (the CLIs without ``--device
+  cpu``) on a machine with no CUDA raise;
 - the kernel wrappers take their plain versions only for CPU tensors: given a
   tensor on another device they launch the kernel or raise, here with the
   library loader made to fail.
@@ -123,6 +124,33 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_cli_and_loader_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """The landmark net, the alignment hook, the runner's loaders and the
+    three CLIs run on the card unless asked: without one they raise before
+    they read or write anything."""
+    from tpufusion_torch.cli import attack_run, fuse, invert
+    from tpufusion_torch.data.alignment import resolve_align_preprocess
+    from tpufusion_torch.models import landmarks
+    from tpufusion_torch.runner import load_existing_inputs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    weights = os.path.join(landmarks.WEIGHTS_DIR, "landmark_net.npz")
+    for build in (lambda: landmarks.create_landmark_net(),
+                  lambda: landmarks.load_landmark_net(weights),
+                  lambda: landmarks.load_packaged_landmark_net(),
+                  lambda: landmarks.packaged_landmark_provider(),
+                  lambda: resolve_align_preprocess(None, None),
+                  lambda: resolve_align_preprocess(weights, None),
+                  lambda: load_existing_inputs("no-such-file.npz", 5, 32),
+                  lambda: attack_run.main(["--tiny", "--save_dir", str(tmp_path / "runs")]),
+                  lambda: invert.main(["--images_dir", str(tmp_path), "--tiny",
+                                       "--save_dir", str(tmp_path / "inv")]),
+                  lambda: fuse.main(["--tiny", "--out", str(tmp_path / "demo.jpg")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert os.listdir(tmp_path) == []
 
 
 def _meta(*shape):

@@ -18,4 +18,5 @@ This package imports ``torch`` and ``numpy`` only — never ``jax`` and nothing
 of ``tpufusion``.
 """
 
-__all__ = ["core", "ops", "models", "fusion", "attacks", "eval", "io", "pipeline"]
+__all__ = ["core", "ops", "models", "fusion", "attacks", "eval", "io", "pipeline", "configs",
+           "data", "utils", "runner", "cli"]

@@ -12,7 +12,8 @@ from tpufusion_torch.eval.partial import (
     partial_adv_fusion,
     partial_latent_variants,
 )
+from tpufusion_torch.eval.report import ResultsTable
 
 __all__ = ["benign_fusion", "fused_image_metrics", "input_noise_mse", "latent_distance",
            "mse_per_image", "partial_adv_fusion", "partial_latent_variants",
-           "perceptual_distance_per_image", "rgb_to_gray", "ssim"]
+           "perceptual_distance_per_image", "ResultsTable", "rgb_to_gray", "ssim"]

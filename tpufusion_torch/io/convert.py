@@ -3,8 +3,9 @@
 ``*_state_from_jax`` invert the JAX package's checkpoint converters
 (``tpufusion/io/checkpoint.py::convert_stylegan2_checkpoint``,
 ``::convert_e4e_checkpoint``, the VGG16 loader, ``convert_ada_discriminator``,
-``tpufusion/models/resnet.py::convert_resnet18_checkpoint`` and
-``tpufusion/models/vit.py::convert_vit_checkpoint``), written from their
+``tpufusion/models/resnet.py::convert_resnet18_checkpoint``,
+``tpufusion/models/vit.py::convert_vit_checkpoint`` and the flax layout of
+``tpufusion/models/landmarks.py::LandmarkNet``), written from their
 layouts without importing them: inputs are the JAX variables as nested dicts
 of numpy arrays, outputs ``{name: np.ndarray}`` dicts with the port's names,
 ready for ``load_state_dict`` after ``torch.from_numpy``. ``*_state_to_jax``
@@ -385,6 +386,34 @@ def discriminator_state_from_jax(variables_np: dict) -> dict:
     sd["b4.out.weight"] = _linear(p["out"]["kernel"])
     sd["b4.out.bias"] = np.asarray(p["out"]["bias"])
     return sd
+
+
+LANDMARK_LAYERS = ("conv0", "conv1", "conv2", "conv3", "fc1", "head")
+
+
+def landmark_state_from_jax(variables_np: dict) -> dict:
+    """JAX ``LandmarkNet`` variables -> the port's ``LandmarkNet`` state dict:
+    ``conv{0..3}`` kernels HWIO -> ``.weight`` OIHW, the ``fc1`` and
+    ``head`` Dense kernels (in, out) -> ``.weight`` (out, in), biases as
+    they are."""
+    p = variables_np["params"]
+    sd = {}
+    for name in LANDMARK_LAYERS:
+        k = np.asarray(p[name]["kernel"])
+        sd[f"{name}.weight"] = _conv(k) if k.ndim == 4 else _linear(k)
+        sd[f"{name}.bias"] = np.asarray(p[name]["bias"])
+    return sd
+
+
+def landmark_state_to_jax(state: dict) -> dict:
+    """The port's ``LandmarkNet`` state dict -> JAX ``LandmarkNet`` variables
+    (the inverse of ``landmark_state_from_jax``), for ``save_landmark_net``."""
+    params = {}
+    for name in LANDMARK_LAYERS:
+        w = state[f"{name}.weight"]
+        params[name] = {"kernel": _hwio(w) if w.ndim == 4 else _in_out(w),
+                        "bias": _np(state[f"{name}.bias"])}
+    return {"params": params}
 
 
 def state_dict_to_torch(sd: dict, device=None) -> dict:
