@@ -85,6 +85,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    new_mask.xlsx, 5 x 1024^2 all_adv_inputs.npz, the PGD images in the
    eps-ball and [-1, 1]); then ``invert`` and ``fuse`` at --tiny on the
    card;
+5g. the scale-out routes (run after 5f, so that every earlier number reads
+   as before) on a one-rank NCCL ``('data', 'model')`` mesh over the card,
+   the pipeline of phase 5: the host time of a ``tpufusion::styled_conv``
+   call against the bare launch; then, with cudnn.deterministic on and
+   deterministic algorithms required, each single-device route (outside
+   the counted runs), then each sharded route, held bit-equal to it (the
+   patch, to the step written out, within 1e-5 + 1e-4 of its largest
+   value; CW, whose antialiased resize has no deterministic backward,
+   within 1e-6), then each single-device route again, timed against the
+   sharded one: ``run_whitebox_sharded`` (N = 5, 2 iterations),
+   ``run_pgd_sharded`` (the runner's PGD, N = 5, 2 steps, one explicit
+   start), ``run_cw_sharded`` (resnet18, 8 x 1024^2, 5 steps),
+   ``train_patch_sharded`` (1 epoch, 2 images, max_count 2), the group
+   fusion attack (G = 2 groups of N = 5, both modes, 2 steps) and the group
+   evaluation; a DCP checkpoint of the white-box state (bytes, save and
+   restore seconds) and a white-box run interrupted after one iteration and
+   resumed, bit-equal to the whole run; ``export_decode`` and
+   ``export_spatial_fusion`` at 1024^2 on the card, saved, loaded, holding
+   the ``tpufusion::styled_conv`` node and bit-equal to the eager forwards
+   (export and load seconds, bytes, forward ms). The launch counts are set
+   to 0 just before and read just after each of three runs: the sharded
+   routes (styled_conv, conv3x3 forward and input grad, pgd_update and
+   fused_adam each launched), the DCP resume (all but pgd_update) and the
+   exported programs' forwards (styled_conv);
 7. the kernels line (JSON, one object) and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -430,10 +454,10 @@ def _numbers(rs, path="pgd"):
 def summarize(records, runs):
     """One entry per kernel source: launches on the main paths and
     ``_numbers``. ``runs`` maps each main path ("pgd", "whitebox",
-    "spatial", "patch", "classifier", "cli") to its (launch counts, launches
-    per step; per inner step on the patch path; None for the CLI's whole
-    run, which has no one step); ``launches`` is
-    their sum. The numbers at the top of an entry are those of the kernel's
+    "spatial", "patch", "classifier", "cli", and phase 5g's "sharded",
+    "resume" and "export") to its (launch counts, launches per step; per
+    inner step on the patch path; None for a run that has no one step);
+    ``launches`` is their sum. The numbers at the top of an entry are those of the kernel's
     home path (the fusion PGD path, or the white-box path for fused_adam);
     another path's shapes, where it has its own, are under its name (the
     spatial path's batch-1 synthesis shares the PGD path's shapes). conv3x3's entry
@@ -2105,6 +2129,416 @@ def run_cli_path(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 5g: the scale-out routes on a one-rank NCCL mesh, the DCP resume and
+# the exported serving programs, at full width
+# ---------------------------------------------------------------------------
+
+SH_N, SH_ITERS, SH_LR = 5, 2, 1e-4  # white-box: configs/ffhq_whitebox.json's N and lr
+SH_PGD_STEPS = 2  # the runner's PGD (encoder drift) and the group fusion PGD
+SH_CW_N, SH_CW_STEPS, SH_CW_LR = 8, 5, 0.01  # resnet18 CW, the runner's lr
+SH_GROUPS = 2  # fusion groups of N = 5
+SH_PATCH_IMAGES, SH_PATCH_COUNT = 2, 2  # 1 epoch, max_count 2
+# the kernels each counted run of phase 5g must launch: the sharded routes,
+# all five of the attacks' kernels; the DCP resume's two white-box
+# iterations, the synthesis, its backward and Adam; the exported programs'
+# forwards, the synthesis
+PHASE_5G_KERNELS = {
+    "sharded": ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "pgd_update", "fused_adam"),
+    "resume": ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "fused_adam"),
+    "export": ("styled_conv",),
+}
+# With deterministic algorithms required, the one-rank routes run the
+# single-device routes' ops on the same rows and are held bit-equal to
+# them, but for two. The patch route is held to the step written out on one
+# device (``_patch_reference``): the all-reduced weighted sum and the mean
+# over images round apart, by about 2e-7 on an H100. CW's resize to the
+# classifier's input is antialiased, and that backward has no
+# deterministic implementation (it accumulates with atomics): its pixels
+# within a few float32 ulps of 1, its best L2 within 1e-5 of itself.
+SH_PATCH_ATOL, SH_PATCH_RTOL = 1e-5, 1e-4
+SH_CW_ATOL, SH_CW_L2_RTOL = 1e-6, 1e-5
+DISPATCH_CALLS = 200
+
+
+def sharded_launch_failures(counts):
+    """What phase 5g's launch counts fall short of: ``counts`` maps each run
+    of ``PHASE_5G_KERNELS`` to its launch counts, and each kernel that run
+    must launch is launched at least once in it."""
+    return [f"phase 5g's {run} run launched {k} no time"
+            for run, keys in PHASE_5G_KERNELS.items() for k in keys
+            if counts.get(run, {}).get(k, 0) <= 0]
+
+
+def held_failures(torch, what, got, want, *, atol=0.0, rtol=0.0):
+    """``(max |got - want|, failures)``: the shapes agree, ``got`` is finite
+    where ``want`` is (and equal where it is not, as CW's inf for no
+    success), and within ``atol + rtol * max(1, max|want|)`` of ``want``."""
+    if tuple(got.shape) != tuple(want.shape):
+        return math.inf, [f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}"]
+    got, want = got.float(), want.float()
+    ok = torch.isfinite(want)
+    if bool((torch.isfinite(got) != ok).any()) or not bool((got[~ok] == want[~ok]).all()):
+        return math.inf, [f"{what}: finite where the single-device route is not, or back"]
+    if not bool(ok.any()):
+        return 0.0, []
+    err = (got[ok] - want[ok]).abs().max().item()
+    lim = atol + rtol * max(1.0, want[ok].abs().max().item())
+    return err, ([] if err <= lim else [f"{what}: {err:.3e} > {lim:.3e} from the "
+                                        f"single-device route"])
+
+
+def _patch_reference(torch, pipe, imgs, patch, draws, cfg):
+    """The batch-synchronous patch step on one device, written out: every
+    image's placement fixed, the mean over images of the encoder drift,
+    ``patch -= step_size * grad`` clamped to the batch's range, ``max_count``
+    times. Returns the patch and its loss trace."""
+    from tpufusion_torch.attacks.patch import square_transform
+    from tpufusion_torch.core.imaging import avg_pool
+
+    f, size = pipe.pool_factor, pipe.image_size
+    with torch.no_grad():
+        latent = pipe.encoder(avg_pool(imgs, f))
+        masks = torch.stack([square_transform(patch, size, draw=d)[1] for d in draws])
+    lo, hi = imgs.min(), imgs.max()
+    trace = []
+    for _ in range(cfg.max_count):
+        p = patch.detach().requires_grad_(True)
+        canvases = torch.stack([square_transform(p, size, draw=d)[0] for d in draws])
+        adv = (1.0 - masks) * imgs + masks * canvases
+        d = latent.float() - pipe.encoder(avg_pool(adv, f)).float()
+        loss = cfg.w_latent_org * (d * d).flatten(1).mean(dim=1).mean()
+        (g,) = torch.autograd.grad(loss, p)
+        with torch.no_grad():
+            patch = torch.minimum(torch.maximum(patch - cfg.step_size * g, lo), hi)
+        trace.append(loss.detach())
+    return patch, torch.stack(trace)
+
+
+def _dispatch_us(torch):
+    """Host µs per call of ``tpufusion::styled_conv`` and of the kernel's
+    launch without the operator, at the 4^2 x 512 shape of the synthesis's
+    first conv (batch 1, bf16), over ``DISPATCH_CALLS`` calls each."""
+    from tpufusion_torch.ops import styled_conv as sc
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rn = lambda *s: torch.randn(s, generator=g, device="cuda")  # noqa: E731
+    args = (rn(1, 4, 4, 512).bfloat16(), rn(3, 3, 512, 512), rn(1, 512) * 0.5 + 1,
+            rn(1, 4, 4, 1), torch.tensor(0.2, device="cuda"), rn(512) * 0.1)
+    out = {}
+    for name, fn in (("op", sc.styled_conv_op), ("kernel", sc.styled_conv_kernel)):
+        for _ in range(10):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn(*args)
+        out[name] = (time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS
+        torch.cuda.synchronize()
+    return out
+
+
+def run_sharded_path(torch, card, pipe):
+    """Phase 5g on the pipeline of phase 5 (FFHQ 1024^2, published widths):
+    a one-rank NCCL ``('data', 'model')`` mesh (``parallel.create_mesh``),
+    cudnn.deterministic on and deterministic algorithms required. The
+    single-device routes run first; then three counted runs: the sharded
+    routes (white-box N = 5, 2 iterations; the runner's PGD, N = 5, 2 steps
+    from one explicit start; resnet18 CW, 8 x 1024^2, 5 steps; the patch, 1
+    epoch of 2 images, max_count 2; the group fusion attack, G = 2 groups of
+    N = 5 in both modes, 2 steps, and the group evaluation), each held to
+    its single-device route; a DCP checkpoint of the white-box state written
+    and restored, and the white-box run interrupted after one iteration and
+    resumed from it, equal to the whole run; ``export_decode`` and
+    ``export_spatial_fusion`` at 1024^2, saved, loaded and run against the
+    eager forwards. Returns the launch counts of each run ("sharded",
+    "resume", "export") and the numbers."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from tpufusion_torch import ops
+    from tpufusion_torch import parallel as P
+    from tpufusion_torch.attacks.cw import CWConfig, make_cw
+    from tpufusion_torch.attacks.fusion_attack import FusionAttackConfig, make_fusion_attack
+    from tpufusion_torch.attacks.patch import (
+        PatchConfig, canonical_canvas, draw_placement, init_patch_square)
+    from tpufusion_torch.attacks.pgd import PGDConfig, make_pgd, pgd_random_start
+    from tpufusion_torch.attacks.whitebox import WhiteboxConfig, run_whitebox
+    from tpufusion_torch.core.imaging import avg_pool
+    from tpufusion_torch.core.prng import split_generator
+    from tpufusion_torch.eval import benign_fusion, fused_image_metrics, partial_adv_fusion
+    from tpufusion_torch.eval.metrics import mse_per_image
+    from tpufusion_torch.fusion.spatial import ROLE_MAPS, spatial_fused
+    from tpufusion_torch.io import dcp_io
+    from tpufusion_torch.io.attack_state import run_whitebox_sharded_resumable
+    from tpufusion_torch.io.export import (
+        export_decode, export_spatial_fusion, load_program, module_params, spatial_roles)
+    from tpufusion_torch.models.classifiers import load_gender_classifier
+    from tpufusion_torch.parallel.sharding import (
+        GROUP_EVAL_KEYS, as_dtensors, make_sharded_whitebox_step, prepare_whitebox_batch,
+        to_local)
+
+    failures = []
+    nums = {}
+    dispatch = _dispatch_us(torch)
+    nums.update(dispatch_op_us=dispatch["op"], dispatch_kernel_us=dispatch["kernel"])
+    log(f"  tpufusion::styled_conv host time per call {dispatch['op']:.1f} us, the launch "
+        f"alone {dispatch['kernel']:.1f} us: the operator adds "
+        f"{dispatch['op'] - dispatch['kernel']:.1f} us a call [{card}]")
+
+    # deterministic algorithms required (cuBLAS needs its workspace fixed
+    # for that); an op that has none warns on stderr, and the equality
+    # gates below decide whether its result still matched
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    mesh = P.create_mesh(data=1)
+    if tuple(mesh.shape) != (1, 1) or dist.get_backend() != "nccl":
+        fail(f"phase 5g mesh {tuple(mesh.shape)} on {dist.get_backend()}, expected (1, 1) nccl")
+    work = os.path.join(HERE, "runs", "chip_smoke", "sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rand = lambda *s: torch.rand(s, generator=gen, device="cuda") * 2 - 1  # noqa: E731
+    x, target = rand(SH_N, 1024, 1024, 3), rand(1, 1024, 1024, 3)
+    wide = target.expand_as(x).contiguous()
+    wcfg = WhiteboxConfig(lr=SH_LR, n_iters=SH_ITERS)
+    with torch.no_grad():
+        ref = pipe.encode(x)
+    factor = pipe.pool_factor
+
+    def drift(adv, ref_codes):  # the runner's PGD objective
+        return ((pipe.encoder(avg_pool(adv, factor)).float() - ref_codes.float()) ** 2).mean()
+
+    eps = 8 / 255 * 2
+    pcfg = PGDConfig(eps=eps, alpha=0.01 * 2, steps=SH_PGD_STEPS, random_start=True)
+    start = pgd_random_start(x, gen, pcfg)
+    xc = rand(SH_CW_N, 1024, 1024, 3)
+    clf_fn, resnet = load_gender_classifier(None, device="cuda", seed=7)
+    with torch.no_grad():
+        labels = clf_fn(resnet, xc).argmax(-1)
+    ccfg = CWConfig(steps=SH_CW_STEPS, lr=SH_CW_LR)
+    cw_logits = lambda im, m: clf_fn(m, im)  # noqa: E731
+    patch_cfg = PatchConfig(max_count=SH_PATCH_COUNT)
+    patch0 = init_patch_square(1024, patch_cfg.patch_frac, gen)
+    draws = [draw_placement("square", gen, 1024, patch0.shape[0])
+             for _ in range(SH_PATCH_IMAGES)]
+    groups = rand(SH_GROUPS, 5, 1024, 1024, 3)
+    gcfgs = {mode: FusionAttackConfig(mode=mode, objective="pixel", targeted=True,
+                                      pgd=PGDConfig(eps=eps, alpha=0.01 * 2,
+                                                    steps=SH_PGD_STEPS))
+             for mode in ("arithmetic", "spatial")}
+    codes = torch.randn((1, pipe.generator.n_latent, 512), generator=gen, device="cuda")
+    lat5 = torch.randn((1, 5, pipe.generator.n_latent, 512), generator=gen, device="cuda")
+
+    def group_single(mode):
+        root = torch.Generator(device="cuda").manual_seed(13)
+        gens = [split_generator(root) for _ in range(SH_GROUPS)]
+        attack = make_fusion_attack(pipe, gcfgs[mode])
+        runs = [attack(groups[g], target, gens[g]) for g in range(SH_GROUPS)]
+        return torch.stack([a for a, _ in runs]), torch.stack([t for _, t in runs])
+
+    def serial_eval(advs):
+        out = []
+        with torch.no_grad():
+            for g in range(SH_GROUPS):
+                cb, ca = pipe.get_latents(groups[g]), pipe.get_latents(advs[g])
+                e = dict(noise=mse_per_image(groups[g], advs[g]))
+                for short, mode in (("sp", "spatial"), ("ar", "arithmetic")):
+                    b, _, _ = benign_fusion(pipe.drawer, cb, mode)
+                    part = partial_adv_fusion(pipe.drawer, cb, ca, mode)
+                    e[f"b_{short}"], e[f"part_{short}"] = b, part
+                    e[f"cri_{short}"], e[f"vg_{short}"], e[f"ss_{short}"] = \
+                        fused_image_metrics(pipe, b, part)
+                out.append(e)
+        return {k: torch.stack([e[k].float() for e in out]) for k in GROUP_EVAL_KEYS}
+
+    def whitebox_single():
+        adv, trace = run_whitebox(pipe, x, wide, wcfg)
+        return adv, trace["total"]
+
+    def group_sharded(mode):
+        attack = P.make_sharded_group_fusion_attack(pipe, gcfgs[mode], mesh)
+        return attack(groups, target[None], torch.Generator(device="cuda").manual_seed(13))
+
+    routes = {  # name: (single-device route, sharded route, what the time is per, count)
+        "whitebox": (whitebox_single, lambda: P.run_whitebox_sharded(
+            pipe, x, target, wcfg, None, mesh), "iteration", SH_ITERS),
+        "pgd": (lambda: make_pgd(drift, pcfg, external_start=True)(x, start, ref),
+                lambda: P.run_pgd_sharded(drift, pcfg, x, None, (ref,), ("batch",), mesh,
+                                          start=start), "step", SH_PGD_STEPS),
+        "cw": (lambda: make_cw(cw_logits, ccfg)(xc, labels, resnet),
+               lambda: P.run_cw_sharded(cw_logits, ccfg, xc, labels, (resnet,), ("rep",), mesh),
+               "step", SH_CW_STEPS),
+        "patch": (lambda: canonical_canvas(_patch_reference(
+            torch, pipe, x[:SH_PATCH_IMAGES], patch0, draws, patch_cfg)[0], 1024, "square")[0],
+            lambda: P.train_patch_sharded(
+                pipe, [x[i : i + 1] for i in range(SH_PATCH_IMAGES)], None, patch_cfg, mesh,
+                init_patch=patch0, draws=[draws])[0], "inner step", SH_PATCH_COUNT),
+        "group_arithmetic": (lambda: group_single("arithmetic"),
+                             lambda: group_sharded("arithmetic"), "group step",
+                             SH_GROUPS * SH_PGD_STEPS),
+        "group_spatial": (lambda: group_single("spatial"), lambda: group_sharded("spatial"),
+                          "group step", SH_GROUPS * SH_PGD_STEPS),
+        "group_eval": (lambda: serial_eval(single["group_arithmetic"][0]),
+                       lambda: P.make_sharded_group_eval(pipe, mesh)(
+                           groups, single["group_arithmetic"][0]), "group", SH_GROUPS),
+    }
+    ms = {}
+
+    def run(name, sharded):
+        single_fn, sharded_fn, _, per = routes[name]
+        out, t, _ = _timed(torch, sharded_fn if sharded else single_fn)
+        ms[(name, sharded)] = t / per
+        return out
+
+    # the single-device routes first, outside the counted runs; their times
+    # are taken again after the sharded routes, so that both are timed on
+    # shapes the card has run in this mode
+    single = {}
+    for name in routes:  # in order: the evaluation takes the group attack's output
+        single[name] = run(name, False)
+    with torch.no_grad():
+        eager_decode = pipe.decode(codes)
+        eager_fused, _ = spatial_fused(pipe.drawer, lat5)
+
+    # three counted runs, each with the counts set to 0 just before it and
+    # read just after: the sharded routes, the DCP resume, the exported programs
+    counts = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = {name: run(name, True) for name in routes}
+    torch.cuda.synchronize()
+    counts["sharded"] = ops.launch_counts()
+    for name in routes:
+        run(name, False)
+
+    # DCP: the white-box state written and restored, then a resumed run
+    ops.reset_launch_counts()
+    _, init, place = make_sharded_whitebox_step(pipe, wcfg, mesh)
+    _, sub_p, targets_p, _ = prepare_whitebox_batch(x, target, None, mesh)
+    state = init(*place(sub_p, targets_p))
+    ck = os.path.join(work, "state")
+    t0 = time.perf_counter()
+    dcp_io.save_checkpoint(ck, as_dtensors(mesh, state))
+    nums["dcp_save_s"] = time.perf_counter() - t0
+    nums["dcp_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                            for d, _, fs in os.walk(ck) for f in fs)
+    template = init(*place(sub_p, targets_p))
+    template["x"].zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = to_local(dcp_io.restore_checkpoint(ck, as_dtensors(mesh, template)))
+    torch.cuda.synchronize()
+    nums["dcp_restore_s"] = time.perf_counter() - t0
+    if not torch.equal(restored["x"], state["x"]) or not all(
+            torch.equal(a, b) for a, b in zip(restored["ref"]["feats_org"],
+                                              state["ref"]["feats_org"])):
+        failures.append("phase 5g: the DCP-restored white-box state differs from the saved one")
+    resume_dir = os.path.join(work, "resume")
+    run_whitebox_sharded_resumable(pipe, x, target, dataclasses.replace(wcfg, n_iters=1),
+                                   None, mesh, resume_dir, checkpoint_every=1)
+    resumed, _, resumed_from = run_whitebox_sharded_resumable(
+        pipe, x, target, wcfg, None, mesh, resume_dir, checkpoint_every=1)
+    torch.cuda.synchronize()
+    counts["resume"] = ops.launch_counts()
+    if resumed_from != 1:
+        failures.append(f"phase 5g: the white-box run resumed from step {resumed_from}, not 1")
+
+    # the serving programs at 1024^2
+    ops.reset_launch_counts()
+    art = {}
+    for name, export, args in (
+            ("decode", lambda p: export_decode(pipe, p), (module_params(pipe.generator), codes)),
+            ("spatial_fusion", lambda p: export_spatial_fusion(pipe.drawer, p), None)):
+        path = os.path.join(work, f"{name}.pt2")
+        t0 = time.perf_counter()
+        export(path)
+        art[f"{name}_export_s"] = time.perf_counter() - t0
+        art[f"{name}_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        program = load_program(path)
+        art[f"{name}_load_s"] = time.perf_counter() - t0
+        if not any("tpufusion.styled_conv" in str(n.target)
+                   for n in program.exported.graph.nodes if n.op == "call_function"):
+            failures.append(f"phase 5g: the exported {name} holds no tpufusion::styled_conv node")
+        if args is None:
+            by_role = {r: lat5[:, i] for i, r in enumerate(ROLE_MAPS["ffhq"]["roles"])}
+            base, swaps = spatial_roles("ffhq")
+            args = (module_params(pipe.generator), module_params(pipe.drawer.blender),
+                    pipe.drawer.mean_latent, by_role[base], *[by_role[r] for _, r in swaps])
+        out, t, _ = _timed(torch, lambda: program(*args))
+        out, t, _ = _timed(torch, lambda: program(*args))  # after a warm-up
+        art[f"{name}_forward_ms"] = t
+        want = eager_decode if name == "decode" else eager_fused
+        art[f"{name}_max_abs_err"], bad = held_failures(torch, f"exported {name}", out, want)
+        failures.extend(bad)
+    torch.cuda.synchronize()
+    counts["export"] = ops.launch_counts()
+
+    # each route against its single-device route, bit for bit (the patch
+    # to its stated bound); the resumed run against the whole sharded run
+    errs = {}
+    for k, parts in (("whitebox", ("", " trace")), ("pgd", ("", " trace")),
+                     ("group_arithmetic", ("", " trace")), ("group_spatial", ("", " trace")),
+                     ("cw", ("", " best L2"))):
+        for part, a, b in zip(parts, got[k], single[k]):
+            tol = {} if k != "cw" else dict(rtol=SH_CW_L2_RTOL) if part else dict(atol=SH_CW_ATOL)
+            err, bad = held_failures(torch, f"sharded {k}{part}", a, b, **tol)
+            errs[k] = max(errs.get(k, 0.0), err)
+            failures.extend(bad)
+    errs["patch"], bad = held_failures(torch, "sharded patch", got["patch"], single["patch"],
+                                       atol=SH_PATCH_ATOL, rtol=SH_PATCH_RTOL)
+    failures.extend(bad)
+    for k in GROUP_EVAL_KEYS:
+        err, bad = held_failures(torch, f"sharded group eval {k}", got["group_eval"][k],
+                                 single["group_eval"][k])
+        errs["group_eval"] = max(errs.get("group_eval", 0.0), err)
+        failures.extend(bad)
+    errs["resumed"], bad = held_failures(torch, "resumed white-box run", resumed,
+                                         got["whitebox"][0])
+    failures.extend(bad)
+    nums.update({f"sharded_{k}_max_abs_err": v for k, v in errs.items()},
+                cw_successes=int(torch.isfinite(got["cw"][1]).sum()))
+    failures.extend(sharded_launch_failures(counts))
+
+    torch.use_deterministic_algorithms(False)
+    if cublas is None:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+    else:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    dist.destroy_process_group()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    shutil.rmtree(work, ignore_errors=True)
+
+    for name, (_, _, per, _) in routes.items():
+        s, o = ms[(name, True)], ms[(name, False)]
+        nums[f"sharded_{name}_ms"], nums[f"single_{name}_ms"] = s, o
+        log(f"  {name}: sharded {s:.3f} ms per {per} against the single-device route's "
+            f"{o:.3f} ({(s / o - 1) * 100:+.1f}%; in turns: single, sharded, single timed) "
+            f"[{card}]")
+    log("  max |sharded - single-device|: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (the patch within {SH_PATCH_ATOL} + {SH_PATCH_RTOL} of max|single|, CW's pixels "
+        f"within {SH_CW_ATOL} and best L2 within {SH_CW_L2_RTOL} of itself, the others "
+        "bit-equal)")
+    log(f"  CW successes {nums['cw_successes']} of {SH_CW_N} (not gated)")
+    log(f"  DCP: white-box state {nums['dcp_bytes']} bytes, saved in {nums['dcp_save_s']:.3f} s, "
+        f"restored in {nums['dcp_restore_s']:.3f} s, equal to the saved state; the run resumed "
+        f"from step {resumed_from}, max {errs['resumed']:.3e} from the whole run [{card}]")
+    for name in ("decode", "spatial_fusion"):
+        log(f"  export {name}: {art[f'{name}_export_s']:.2f} s, {art[f'{name}_bytes']} bytes, "
+            f"load {art[f'{name}_load_s']:.3f} s, forward {art[f'{name}_forward_ms']:.3f} ms, "
+            f"max err {art[f'{name}_max_abs_err']:.3e} against the eager forward [{card}]")
+    for run_name, c in counts.items():
+        log(f"  launches, {run_name}: {c}")
+    if failures:
+        fail("; ".join(failures))
+    nums.update(art)
+    return counts, nums
+# ---------------------------------------------------------------------------
 # phase 6: where the time goes
 # ---------------------------------------------------------------------------
 
@@ -2370,12 +2804,18 @@ def main() -> None:
     cli_launches, cli_numbers = run_cli_path(torch, card)
     main_numbers.update(cli_numbers)
 
+    log("== 5g. scale-out at FFHQ 1024^2 on a one-rank NCCL mesh: the sharded routes against "
+        "the single-device routes, the DCP resume, the exported serving programs")
+    sh_launches, sh_numbers = run_sharded_path(torch, card, attack_args[0])
+    main_numbers.update(sh_numbers)
+
     kernels = summarize(records, {"pgd": (launches, per_step),
                                   "whitebox": (wb_launches, wb_per_step),
                                   "spatial": (sp_launches, sp_per_step),
                                   "patch": (pa_launches, pa_per_step),
                                   "classifier": (cl_launches, cl_per_step),
-                                  "cli": (cli_launches, None)})
+                                  "cli": (cli_launches, None),
+                                  **{run: (c, None) for run, c in sh_launches.items()}})
     out_dir = os.path.join(HERE, "runs", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:

@@ -385,3 +385,89 @@ def test_landmark_check(smoke):
     assert "landmarks" in bad[0] and "quad corners" in bad[1]
     _, _, bad = smoke.landmark_failures([cpu[0] + np.float32(np.nan)], cpu)
     assert len(bad) == 2
+
+
+# phase 5g: the scale-out routes
+
+SHARDED_COUNTS = {"styled_conv": 216, "conv3x3_fwd": 20, "conv3x3_dgrad": 20,
+                  "conv3x3_wgrad": 0, "pgd_update": 10, "fused_adam": 7}
+PHASE_5G_COUNTS = {
+    "sharded": SHARDED_COUNTS,
+    "resume": {"styled_conv": 18, "conv3x3_fwd": 4, "conv3x3_dgrad": 4, "conv3x3_wgrad": 0,
+               "pgd_update": 0, "fused_adam": 2},
+    "export": {"styled_conv": 36, "conv3x3_fwd": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
+               "pgd_update": 0, "fused_adam": 0},
+}
+
+
+@pytest.mark.parametrize("run,kernel", [
+    (None, None), *[(r, k) for r, ks in (
+        ("sharded", ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "pgd_update", "fused_adam")),
+        ("resume", ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "fused_adam")),
+        ("export", ("styled_conv",))) for k in ks]])
+def test_sharded_launch_check(smoke, run, kernel):
+    """Each of phase 5g's three counted runs is gated on its own counts: a
+    kernel that run skipped fails it, whatever the other runs launched."""
+    counts = {r: dict(c) for r, c in PHASE_5G_COUNTS.items()}
+    if run:
+        counts[run][kernel] = 0
+    assert smoke.sharded_launch_failures(counts) == (
+        [f"phase 5g's {run} run launched {kernel} no time"] if run else [])
+
+
+def test_sharded_launch_check_needs_every_run(smoke):
+    counts = {r: c for r, c in PHASE_5G_COUNTS.items() if r != "export"}
+    assert smoke.sharded_launch_failures(counts) == [
+        "phase 5g's export run launched styled_conv no time"]
+
+
+def test_held_check(smoke):
+    want = torch.tensor([1.0, 2.0, math.inf])
+    assert smoke.held_failures(torch, "r", want.clone(), want) == (0.0, [])
+    err, bad = smoke.held_failures(torch, "r", torch.tensor([1.0, 2.002, math.inf]), want,
+                                   rtol=1e-3)
+    assert err == pytest.approx(0.002, rel=1e-3) and "from the single-device route" in bad[0]
+    assert smoke.held_failures(torch, "r", torch.tensor([1.0, 2.002, math.inf]), want,
+                               rtol=2e-3)[1] == []
+    # finite where the single-device route is not (CW's inf for no success), or back
+    for got in (torch.tensor([1.0, 2.0, 3.0]), torch.tensor([math.nan, 2.0, math.inf])):
+        assert "finite where" in smoke.held_failures(torch, "r", got, want)[1][0]
+    assert "shape" in smoke.held_failures(torch, "r", want[:2], want)[1][0]
+
+
+@pytest.mark.parametrize("fault", [None, "ulp", "nan", "shape"])
+def test_held_check_is_bit_equal_by_default(smoke, fault):
+    """With no tolerance given a route is held bit for bit: one float32 ulp
+    off one pixel fails it."""
+    want = torch.linspace(-1, 1, 2 * 8 * 8 * 3).reshape(2, 8, 8, 3)
+    got = want.clone()
+    if fault == "ulp":
+        got[1, 3, 4, 2] = torch.nextafter(got[1, 3, 4, 2], torch.tensor(2.0))
+    elif fault == "nan":
+        got[0, 0, 0, 0] = math.nan
+    elif fault == "shape":
+        got = got[:1]
+    err, bad = smoke.held_failures(torch, "sharded pgd", got, want)
+    if fault is None:
+        assert (err, bad) == (0.0, [])
+    else:
+        assert len(bad) == 1 and err > 0, (err, bad)
+
+
+def test_summarize_carries_the_sharded_run(smoke):
+    records = [_record("pgd_update", "pgd", 0.04, dtype="float32")]
+    keys = tuple(SHARDED_COUNTS)
+    runs = {"pgd": (dict(zip(keys, (81, 12, 12, 0, 6, 0))), dict(zip(keys, (9, 2, 2, 0, 1, 0)))),
+            "cli": (CLI_COUNTS, None), **{r: (c, None) for r, c in PHASE_5G_COUNTS.items()}}
+    by_name = {k["name"]: k for k in smoke.summarize(records, runs)}
+    styled = by_name["styled_conv"]
+    assert (styled["launches_sharded_path"], styled["launches_resume_path"],
+            styled["launches_export_path"]) == (216, 18, 36)
+    assert styled["launches"] == 81 + CLI_COUNTS["styled_conv"] + 216 + 18 + 36
+    assert by_name["pgd_update"]["launches"] == 6 + 2 + 10
+    assert by_name["fused_adam"]["launches_sharded_path"] == 7
+    assert by_name["fused_adam"]["launches_resume_path"] == 2
+    assert "launches_per_sharded_step" not in by_name["fused_adam"]
+    assert by_name["conv3x3"]["parts"]["input_grad"]["launches_sharded_path"] == 20
+    assert by_name["conv3x3"]["parts"]["input_grad"]["launches_resume_path"] == 4
+    assert by_name["conv3x3"]["parts"]["weight_grad"]["launches_sharded_path"] == 0

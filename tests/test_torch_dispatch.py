@@ -7,8 +7,10 @@ take.
   starts, ``dp_noise``, the patch draws, CW) keep their invariants: the
   eps-ball and [-1, 1], finite pixels, the loss log's length; the white-box
   pixels move at most lr a step;
-- a saved patch is reused; an unknown attack and a multi-device mesh raise;
-  the white-box executor rules are JAX's;
+- a saved patch is reused; an unknown attack raises; a one-device mesh is
+  the single-device path, and ``whitebox_grad_accum > 1`` with a
+  multi-device mesh raises JAX's error; the white-box executor rules are
+  JAX's;
 - snapshots and ``whitebox_grad_accum`` through ``run_experiment``, R+FGSM's
   recorded semantics, the hybrid splice, realism scores, the mid-run flush
   with ``adv_override``, the transfer chain and ``generate_inputs``.
@@ -29,6 +31,14 @@ from tpufusion_torch.configs import ATTACK_CHOICES, AttackRunConfig
 
 N = 3  # the church roles
 LR = 1e-4  # AttackRunConfig's white-box lr
+
+
+@pytest.fixture(scope="module", autouse=True)
+def no_process_group_left():
+    """The one-rank groups that meshes start here end with the module."""
+    yield
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 @pytest.fixture(scope="module")
@@ -110,15 +120,24 @@ def test_unknown_attack_mesh_and_execution_rules(tiny):
     cfg = AttackRunConfig(dataset_name="church")
     with pytest.raises(ValueError, match="unknown attack"):
         runner.dispatch_attack(p, "nope", inputs, target, cfg, torch.Generator())
-    with pytest.raises(NotImplementedError, match="A.11"):
-        runner.dispatch_attack(p, "blur", inputs, target, cfg, torch.Generator(),
-                               mesh=types.SimpleNamespace(size=4))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        runner.run_experiment(p, cfg, inputs, target, torch.Generator(),
-                              mesh=types.SimpleNamespace(size=2))
+    # grad accumulation with a multi-device mesh: JAX's refusal, raised
+    # before the mesh is used (a stand-in with DeviceMesh's size())
+    accum = AttackRunConfig(dataset_name="church", n_iters=1, whitebox_grad_accum=2,
+                            attacks=("white_box_target",))
+    wide = types.SimpleNamespace(size=lambda dim=None: 4)
+    for attack in ("white_box_target", "white_box_patch"):
+        with pytest.raises(ValueError, match="single-chip activation lever"):
+            runner.dispatch_attack(p, attack, inputs, target, accum, torch.Generator(),
+                                   mesh=wide)
+    with pytest.raises(ValueError, match="single-chip activation lever"):
+        runner.run_experiment(p, accum, inputs, target, torch.Generator(),
+                              mesh=types.SimpleNamespace(size=lambda dim=None: 2))
     # a one-device mesh is the single-device path
+    from tpufusion_torch.parallel import create_mesh
+
+    one = create_mesh("cpu", data=1)
     assert len(runner.dispatch_attack(p, "blur", inputs, target, cfg, torch.Generator(),
-                                      mesh=types.SimpleNamespace(size=1))) == 1
+                                      mesh=one)) == 1
     for execution, snaps in (("auto", True), ("auto", False), ("scan", True),
                              ("stepwise", False)):
         assert runner.resolve_whitebox_execution(execution, snaps) == \

@@ -137,6 +137,17 @@ def _draw_pos(generator, image_size: int, side: int):
     return tuple(pos.tolist())
 
 
+def draw_placement(patch_type: str, generator: torch.Generator, image_size: int,
+                   side: int):
+    """One transform draw from ``generator``, as the transforms make it: a
+    square's ``(k, (y, x))``, a circle's ``(angle, (y, x))``."""
+    if patch_type == "square":
+        rot = int(torch.randint(0, 4, (), generator=generator, device=generator.device))
+    else:
+        rot = torch.rand((), generator=generator, device=generator.device) * (2 * math.pi)
+    return rot, _draw_pos(generator, image_size, side)
+
+
 def _place(patch, mask_patch, image_size: int, pos):
     """Full-image ``(canvas, mask)`` holding ``patch`` / ``mask_patch`` with
     their top-left corner at ``pos``."""
@@ -157,8 +168,7 @@ def square_transform(patch: torch.Tensor, image_size: int,
     draw."""
     side = patch.shape[0]
     if draw is None:
-        k = int(torch.randint(0, 4, (), generator=generator, device=generator.device))
-        pos = _draw_pos(generator, image_size, side)
+        k, pos = draw_placement("square", generator, image_size, side)
     else:
         k, pos = int(draw[0]), _placement(draw[1], image_size, side)
     patch = torch.rot90(patch, k, dims=(0, 1))
@@ -173,8 +183,7 @@ def circle_transform(patch: torch.Tensor, image_size: int,
     replaces the generator's draw."""
     side = patch.shape[0]
     if draw is None:
-        angle = torch.rand((), generator=generator, device=generator.device) * (2 * math.pi)
-        pos = _draw_pos(generator, image_size, side)
+        angle, pos = draw_placement("circle", generator, image_size, side)
     else:
         angle, pos = draw[0], _placement(draw[1], image_size, side)
     cmask = _circle_mask(side, patch.device).to(patch.dtype)

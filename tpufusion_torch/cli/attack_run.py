@@ -9,12 +9,18 @@ and absent a ``--target_image`` it synthesises an out-of-domain target from a
 fixed seed (standing in for ``vase1.png``, `attack_main2.py:916`).
 
 Flags, preset resolution and messages are the JAX CLI's. It runs on the
-card unless ``--device`` says otherwise; ``--mesh`` is refused (ROADMAP
-A.11: the group-parallel branch and the sharded attacks are not ported).
+card unless ``--device`` says otherwise. ``--mesh data=N[,model=M]`` runs
+the sharded routes over one process per device, so it runs under torchrun
+and the mesh must cover the whole world (data x model = world size; the
+JAX CLI takes the first data x model visible devices instead). With
+several fusion groups it attacks and evaluates them group-parallel; only
+rank 0 writes run folders and prints.
 
-Example (tiny models, CPU):
+Examples:
     python -m tpufusion_torch.cli.attack_run --dataset ffhq --size 32 --tiny \\
         --device cpu --attacks dp_noise pgd --save_dir runs
+    torchrun --nproc-per-node 4 -m tpufusion_torch.cli.attack_run \\
+        --attacks white_box_target fusion_pgd_arith --max_num_fusion 8 --mesh data=4
 """
 
 from __future__ import annotations
@@ -109,9 +115,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="stylegan2-ada pkl with D for realism scoring "
                         "(attack_main2.py:934-938)")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help="a device mesh ('data=N[,model=M]'): accepted for the "
-                        "JAX CLI's command lines, and refused: the port's "
-                        "scale-out is ROADMAP A.11")
+                   help="run on a device mesh: 'data=N[,model=M]' (or just "
+                        "N) over one process per device (torchrun "
+                        "--nproc-per-node N*M); data x model must equal the "
+                        "world size. Routes the attacks through their "
+                        "data-parallel forms, model>1 shards the generator, "
+                        "and several fusion groups run as the "
+                        "group-parallel attack + evaluation")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; 'cpu' runs the "
                         "plain PyTorch path, as the tests do). Without a card "
@@ -127,6 +137,42 @@ def build_parser() -> argparse.ArgumentParser:
                    help="wrap the experiment loop in a torch.profiler trace "
                         "written to DIR/trace.json (chrome://tracing, Perfetto)")
     return p
+
+
+def _parse_mesh_spec(spec: str) -> dict:
+    """'data=4,model=2' | 'data=8' | '8' -> {'data': ..., 'model': ...}."""
+    out = {"model": 1}
+    for part in spec.split(","):
+        k, _, v = part.partition("=")
+        if not v:
+            k, v = "data", k
+        if k not in ("data", "model"):
+            raise SystemExit(f"--mesh: unknown axis {k!r} (use data/model)")
+        try:
+            out[k] = int(v)
+        except ValueError:
+            raise SystemExit(f"--mesh: bad axis size {v!r} in {spec!r}")
+    return out
+
+
+def mesh_from_spec(spec: dict, device, what: str = "--mesh"):
+    """The CLIs' mesh over every process of the group (torchrun's, or one
+    rank): data x model must equal the world size, else ``SystemExit``."""
+    import torch.distributed as dist
+
+    from tpufusion_torch.parallel import create_mesh
+    from tpufusion_torch.parallel.sharding import init_process_group
+
+    init_process_group(device.type)
+    world = dist.get_world_size()
+    data, model = spec.get("data"), spec["model"]
+    want = data * model if data is not None else None
+    if (want is not None and want != world) or world % model:
+        raise SystemExit(
+            f"{what} requests data={data} x model={model} devices but the process "
+            f"group has world size {world}: start one process per device "
+            f"(torchrun --nproc-per-node {want or model} ...)")
+    return create_mesh(device, data=data, model=model)
 
 
 def _explicit_dests(parser: argparse.ArgumentParser, argv) -> set:
@@ -165,10 +211,7 @@ def main(argv=None) -> int:
     if unknown:
         raise SystemExit(
             f"unknown attack(s) {unknown}; choices: {', '.join(ATTACK_CHOICES)}")
-    if args.mesh:
-        from tpufusion_torch.runner import SCALE_OUT
-
-        raise SystemExit(f"--mesh {args.mesh}: {SCALE_OUT}")
+    mesh_spec = _parse_mesh_spec(args.mesh) if args.mesh else None
 
     import torch
 
@@ -182,6 +225,12 @@ def main(argv=None) -> int:
 
     # no card and no --device cpu: fail here, before any work
     device = resolve_device(args.device)
+    mesh = None
+    if mesh_spec is not None:
+        mesh = mesh_from_spec(mesh_spec, device)
+    # with a mesh every rank runs the experiment; rank 0 writes and prints
+    lead = mesh is None or mesh.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
     if args.config:
         from tpufusion_torch.configs import load_config
@@ -253,9 +302,9 @@ def main(argv=None) -> int:
         # instead of silently no-opping
         for fld in ("batch", "n_sample"):
             if getattr(cfg, fld) != getattr(AttackRunConfig(), fld):
-                print(f"[attack_run] note: preset field '{fld}' is not used "
-                      f"by this CLI (fusion group size comes from the "
-                      f"dataset; 'n_sample' drives the invert CLI)")
+                say(f"[attack_run] note: preset field '{fld}' is not used "
+                    f"by this CLI (fusion group size comes from the "
+                    f"dataset; 'n_sample' drives the invert CLI)")
     else:
         cfg = AttackRunConfig(
             dataset_name=args.dataset, attacks=tuple(args.attacks), lr=args.lr,
@@ -307,8 +356,8 @@ def main(argv=None) -> int:
     os.makedirs(dataset_dir, exist_ok=True)
 
     t0 = time.time()
-    print(f"[attack_run] building {args.dataset} pipeline "
-          f"(size={args.size or 'default'}, tiny={args.tiny}) on {device} …")
+    say(f"[attack_run] building {args.dataset} pipeline "
+        f"(size={args.size or 'default'}, tiny={args.tiny}) on {device} …")
     seed = _draw_seed(pool.next())
     if args.tiny:
         pipeline = create_test_pipeline(args.dataset, size=args.size or 32, device=device,
@@ -322,8 +371,16 @@ def main(argv=None) -> int:
             encoder_units=tuple(cfg.encoder_units), device=device, seed=seed,
         )
     pipeline = _maybe_load_checkpoints(pipeline, cfg.paths)
-    print(f"[attack_run] pipeline ready in {time.time() - t0:.1f}s "
-          f"(generator {pipeline.image_size}^2)")
+    say(f"[attack_run] pipeline ready in {time.time() - t0:.1f}s "
+        f"(generator {pipeline.image_size}^2)")
+    if mesh is not None:
+        if mesh.size(1) > 1:
+            from tpufusion_torch.parallel import shard_generator_params
+
+            # TP: shard mapping/affine out-features + conv out-channels
+            shard_generator_params(pipeline.generator, mesh, generator=pipeline.generator)
+        say(f"[attack_run] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+            f"{mesh.size()} {device.type} device(s)")
 
     n = cfg.n_inputs
 
@@ -334,10 +391,10 @@ def main(argv=None) -> int:
 
         result = run_hybrid_from_dirs(
             pipeline, cfg, dataset_dir, args.hybrid_from_dirs,
-            save_root=dataset_dir,
+            save_root=dataset_dir if lead else None,
         )
-        print(f"[attack_run] hybrid splice from {len(args.hybrid_from_dirs)} "
-              f"runs (counts {result['counts']}); artifacts under {dataset_dir}")
+        say(f"[attack_run] hybrid splice from {len(args.hybrid_from_dirs)} "
+            f"runs (counts {result['counts']}); artifacts under {dataset_dir}")
         return 0
 
     n_groups = max(cfg.max_num_fusion, 1)
@@ -345,7 +402,7 @@ def main(argv=None) -> int:
         from tpufusion_torch.runner import load_existing_inputs
 
         inputs = load_existing_inputs(args.inputs_path, n, pipeline.image_size, device=device)
-        print(f"[attack_run] reusing saved inputs from {args.inputs_path}")
+        say(f"[attack_run] reusing saved inputs from {args.inputs_path}")
         input_groups = [inputs]
     elif args.images_dir:
         t_load = time.time()
@@ -383,10 +440,10 @@ def main(argv=None) -> int:
         if not input_groups:
             raise SystemExit(f"--images_dir yielded no full group of {n} images")
         inputs = input_groups[0]
-        print(f"[attack_run] loaded {len(input_groups)} group(s) of {n} images"
-              f"{' (aligned)' if args.align else ''} in {time.time() - t_load:.1f}s")
+        say(f"[attack_run] loaded {len(input_groups)} group(s) of {n} images"
+            f"{' (aligned)' if args.align else ''} in {time.time() - t_load:.1f}s")
     else:
-        print("[attack_run] no --images_dir: generating inputs from the generator")
+        say("[attack_run] no --images_dir: generating inputs from the generator")
         # record the data-free path in the run metadata (the reference's
         # --use_generate_img flag, `attack_main2.py:1001-1002`)
         cfg.use_generate_img = True
@@ -409,14 +466,22 @@ def main(argv=None) -> int:
 
         attack = cfg.attacks[0] if cfg.attacks[0] in (
             "pgd_classifier", "cw_classifier", "cw") else "pgd_classifier"
+        # the chain reloads its crops from disk: under a mesh the other ranks
+        # run it in a folder of their own, removed after
+        import shutil
+        import tempfile
+
+        chain_root = dataset_dir if lead else tempfile.mkdtemp(prefix="transfer_chain_")
         chain = run_transfer_chain(
-            pipeline, cfg, inputs, target, pool.next(), dataset_dir,
+            pipeline, cfg, inputs, target, pool.next(), chain_root,
             attack=attack,
         )
+        if not lead:
+            shutil.rmtree(chain_root, ignore_errors=True)
         r = chain["fuse"]["adv_generate"][0]
-        print(f"[attack_run] transfer chain ({attack} -> adv_generate): "
-              f"input-noise MSE {float(r['noise'].mean()):.5f}, crops at "
-              f"{chain['adv_inputs_path']}")
+        say(f"[attack_run] transfer chain ({attack} -> adv_generate): "
+            f"input-noise MSE {float(r['noise'].mean()):.5f}, crops at "
+            f"{chain['adv_inputs_path']}")
         return 0
 
     discriminator = None
@@ -438,31 +503,69 @@ def main(argv=None) -> int:
                                  channel_multiplier=1 if args.tiny else 2,
                                  policy=pipeline.policy, device=device)
         discriminator = load_ada_discriminator(d_tensors, d)
-        print(f"[attack_run] realism scoring with D from {d_ckpt}")
+        say(f"[attack_run] realism scoring with D from {d_ckpt}")
 
     import contextlib
 
     profile_ctx = contextlib.nullcontext()
-    if args.profile:
+    if args.profile and lead:
         from tpufusion_torch.utils.logging import trace_profile
 
         profile_ctx = trace_profile(args.profile)
-        print(f"[attack_run] profiling to {args.profile}")
+        say(f"[attack_run] profiling to {args.profile}")
+
+    # group-parallel fusion attacks: with a mesh and several groups, attack
+    # ALL groups up front with the group axis over 'data' (the reference's
+    # max_num_fusion loop, `interpolation.py:1265`), then run the
+    # EVALUATION phase (partial fusion both modes + metric rows,
+    # `interpolation.py:1076-1091`) for all groups the same way;
+    # run_experiment below consumes both via adv_override
+    adv_overrides = [dict() for _ in input_groups]
+    gp_attacks = [a for a in cfg.attacks if a.startswith("fusion_pgd")]
+    if mesh is not None and mesh.size() > 1 and len(input_groups) > 1 and gp_attacks:
+        from tpufusion_torch.attacks.fusion_attack import FusionAttackConfig
+        from tpufusion_torch.attacks.pgd import PGDConfig
+        from tpufusion_torch.parallel import (
+            make_sharded_group_eval,
+            make_sharded_group_fusion_attack,
+        )
+
+        groups_arr = torch.stack(input_groups)
+        gp_target = target[None]  # (1, 1, S, S, 3): shared across groups
+        gp_eval = make_sharded_group_eval(pipeline, mesh)
+        for a in gp_attacks:
+            facfg = FusionAttackConfig(
+                mode="arithmetic" if a.endswith("arith") else "spatial",
+                objective="pixel", targeted=True,
+                pgd=PGDConfig(eps=cfg.pgd_eps * 2.0, alpha=cfg.pgd_alpha * 2.0,
+                              steps=cfg.pgd_steps),
+            )
+            gattack = make_sharded_group_fusion_attack(pipeline, facfg, mesh)
+            adv_all, traces = gattack(groups_arr, gp_target, pool.next())
+            evals = gp_eval(groups_arr, adv_all)
+            for gi in range(len(input_groups)):
+                per_group = {k: v[gi] for k, v in evals.items()}
+                adv_overrides[gi][a] = {"batches": [adv_all[gi]],
+                                        "trace": traces[gi],
+                                        "evals": [per_group]}
+            say(f"[attack_run] {a}: {len(input_groups)} groups attacked AND evaluated "
+                f"group-parallel over mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
 
     # one run_experiment per fusion group (`interpolation.py:1265` evaluates
     # max_num_fusion independent batches; each gets its own numbered run dir)
     def run_group(gi: int, group) -> None:
         results = run_experiment(
             pipeline, cfg, group, target, pool.next(),
-            save_root=dataset_dir if cfg.save_img else None,
+            save_root=dataset_dir if cfg.save_img and lead else None,
             discriminator=discriminator,
+            mesh=mesh, adv_override=adv_overrides[gi] or None,
         )
         tag = f" [group {gi}]" if len(input_groups) > 1 else ""
         if results.get("realism"):
             # the reference prints D logits of benign vs adversarial fused
             # images (`attack_main2.py:1029-1032,1091-1094`, commented-in)
-            print(f"[attack_run]{tag} realism(D): benign fused "
-                  f"{float(results['realism']['fused_spatial'].float().mean()):+.4f}")
+            say(f"[attack_run]{tag} realism(D): benign fused "
+                f"{float(results['realism']['fused_spatial'].float().mean()):+.4f}")
         for attack in cfg.attacks:
             for r in results[attack]:
                 noise = float(r["noise"].float().mean())
@@ -473,12 +576,12 @@ def main(argv=None) -> int:
                 if r.get("adv_realism") is not None:
                     msg += (f", realism(D) adv fused "
                             f"{float(r['adv_realism'].float().mean()):+.4f}")
-                print(msg)
+                say(msg)
 
     with profile_ctx:
         for gi, group in enumerate(input_groups):
             run_group(gi, group)
-    print(f"[attack_run] artifacts under {dataset_dir}")
+    say(f"[attack_run] artifacts under {dataset_dir}")
     return 0
 
 

@@ -2,8 +2,10 @@
 ``inversion()`` / ``generate_inversions`` (reference C23,
 `attack_main2.py:75-94,173-182`): batch-encode a dataset to latents.npz,
 then decode each latent back to an inversion image (cars get the 64:448
-centre crop). Runs on the card unless ``--device`` says otherwise;
-``--mesh`` is refused (ROADMAP A.11).
+centre crop). Runs on the card unless ``--device`` says otherwise.
+``--mesh N`` encodes over an N-process ``data`` mesh (torchrun
+--nproc-per-node N; N must be the world size): each rank encodes its rows
+of every batch and the latents are gathered; rank 0 writes.
 
     python -m tpufusion_torch.cli.invert --images_dir data/ --dataset ffhq \\
         --tiny --size 32 --device cpu --save_dir runs/inv
@@ -32,15 +34,13 @@ def main(argv=None) -> int:
     p.add_argument("--landmark_net", default=None)
     p.add_argument("--dlib_predictor", default=None)
     p.add_argument("--mesh", default=None, metavar="N", type=int,
-                   help="an N-device 'data' mesh: refused, the port's "
-                        "scale-out is ROADMAP A.11")
+                   help="shard the encode batch over an N-device 'data' "
+                        "mesh, one process per device (torchrun "
+                        "--nproc-per-node N); batch-encode is embarrassingly "
+                        "parallel")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; 'cpu' for the plain path)")
     args = p.parse_args(argv)
-    if args.mesh and args.mesh > 1:
-        from tpufusion_torch.runner import SCALE_OUT
-
-        raise SystemExit(f"--mesh {args.mesh}: {SCALE_OUT}")
 
     import numpy as np
     import torch
@@ -51,6 +51,20 @@ def main(argv=None) -> int:
     from tpufusion_torch.pipeline import FusionPipeline, create_test_pipeline
 
     device = resolve_device(args.device)
+    get_latents = None
+    lead = True
+    if args.mesh and args.mesh > 1:
+        from tpufusion_torch.cli.attack_run import mesh_from_spec
+        from tpufusion_torch.parallel.sharding import gather_rows, local_rows, pad_batch_to_multiple
+
+        mesh = mesh_from_spec({"data": args.mesh, "model": 1}, device, what=f"--mesh {args.mesh}")
+        lead = mesh.get_rank() == 0
+        if lead:
+            print(f"[invert] DP encode over mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+
+        def get_latents(batch):
+            padded, n_real = pad_batch_to_multiple(batch, args.mesh)
+            return gather_rows(mesh, pipeline.get_latents(local_rows(mesh, padded)))[:n_real]
     os.makedirs(args.save_dir, exist_ok=True)
     if args.tiny:
         pipeline = create_test_pipeline(args.dataset, size=args.size or 32, device=device)
@@ -73,12 +87,15 @@ def main(argv=None) -> int:
     n = min(args.n_sample or len(ds), len(ds))
     loader = BatchLoader(ds, np.arange(n), args.batch, shuffle=False, drop_last=False)
 
+    get_latents = get_latents or pipeline.get_latents
     all_latents = []
     with torch.no_grad():
         for batch in loader:
-            codes = pipeline.get_latents(torch.as_tensor(batch, device=device))
+            codes = get_latents(torch.as_tensor(batch, device=device))
             all_latents.append(codes.float().cpu().numpy())
     latents = np.concatenate(all_latents, axis=0)
+    if not lead:
+        return 0
     lat_path = os.path.join(args.save_dir, "latents.npz")
     np.savez(lat_path, latents=latents)
     print(f"[invert] encoded {latents.shape[0]} images -> {lat_path}")

@@ -48,6 +48,13 @@ class PRNGPool:
         return [torch.Generator(device=self.device).manual_seed(s) for s in seeds]
 
 
+def split_generator(generator: torch.Generator) -> torch.Generator:
+    """A fresh generator on ``generator``'s device, seeded by one draw from
+    it: the port's ``jax.random.split``."""
+    seed = torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device)
+    return torch.Generator(device=generator.device).manual_seed(int(seed.item()))
+
+
 def seed_everything(seed: int = GLOBAL_SEED, device=None) -> PRNGPool:
     """Seed numpy (host-side shuffles) and torch's default generators, and
     return a pool of generators on ``device``."""

@@ -1,5 +1,6 @@
 from tpufusion_torch.eval.metrics import (
     fused_image_metrics,
+    fused_image_metrics_with,
     input_noise_mse,
     latent_distance,
     mse_per_image,
@@ -14,6 +15,7 @@ from tpufusion_torch.eval.partial import (
 )
 from tpufusion_torch.eval.report import ResultsTable
 
-__all__ = ["benign_fusion", "fused_image_metrics", "input_noise_mse", "latent_distance",
+__all__ = ["benign_fusion", "fused_image_metrics", "fused_image_metrics_with",
+           "input_noise_mse", "latent_distance",
            "mse_per_image", "partial_adv_fusion", "partial_latent_variants",
            "perceptual_distance_per_image", "ResultsTable", "rgb_to_gray", "ssim"]

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from tpufusion_torch.core.dtypes import resolve_device
+from tpufusion_torch.core.imaging import avg_pool
 
 # ITU-R 601 luma: the coefficients skimage's rgb2gray applies before the
 # reference's SSIM (`attack_main2.py:832-835`)
@@ -98,15 +99,28 @@ def perceptual_distance_per_image(feats_a, feats_b):
     return total
 
 
+def fused_image_metrics_with(vgg_apply, vgg_vars, pool_factor: int, original_fused,
+                             adv_fused_all):
+    """Params-explicit core of ``fused_image_metrics``: the one definition of
+    the per-image metric triple, shared with the sharded group evaluation
+    (``parallel.sharding.make_sharded_group_eval``) so the two cannot drift
+    apart. ``vgg_apply(vgg_vars, pooled_images)`` returns the 4 perceptual
+    taps (``vgg_vars`` a module or a parameter dict for it). Runs on the
+    device of ``original_fused`` when it is a tensor."""
+    orig, adv = as_tensors(None, original_fused, adv_fused_all)
+    orig_all = orig.expand_as(adv)
+    feats_o = vgg_apply(vgg_vars, avg_pool(orig, pool_factor))
+    feats_a = vgg_apply(vgg_vars, avg_pool(adv, pool_factor))
+    feats_o = [t.expand((adv.shape[0],) + t.shape[1:]) for t in feats_o]
+    return (mse_per_image(orig_all, adv), perceptual_distance_per_image(feats_a, feats_o),
+            ssim(orig_all, adv))
+
+
 def fused_image_metrics(pipeline, original_fused, adv_fused_all):
     """``cal_result`` (`interpolation.py:1076-1091`): each adversarial fused
     image's MSE, VGG perceptual distance and SSIM against the benign fused
     image, on the pipeline's device. Returns three (K,) tensors; one batched
     VGG pass covers the K adversarial images."""
     orig, adv = as_tensors(pipeline.generator.device, original_fused, adv_fused_all)
-    orig_all = orig.expand_as(adv)
-    feats_o = pipeline.vgg_feats(orig)
-    feats_a = pipeline.vgg_feats(adv)
-    feats_o = [t.expand((adv.shape[0],) + t.shape[1:]) for t in feats_o]
-    return (mse_per_image(orig_all, adv), perceptual_distance_per_image(feats_a, feats_o),
-            ssim(orig_all, adv))
+    return fused_image_metrics_with(lambda vgg, x: vgg(x), pipeline.vgg, pipeline.pool_factor,
+                                    orig, adv)

@@ -43,6 +43,14 @@ def channel_map(size: int, channel_multiplier: int = 2, base: int = 512) -> dict
     }
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or the whole tensor of a DTensor leaf, gathered over the
+    ``model`` axis (tensor parallelism, ``parallel.shard_generator_params``):
+    the forward uses every weight whole, so the kernels keep their shapes."""
+    full = getattr(t, "full_tensor", None)
+    return t if full is None else full()
+
+
 def _randn(shape, generator, device, std=1.0):
     return torch.randn(shape, generator=generator, device=device) * std
 
@@ -63,7 +71,8 @@ class EqualLinear(nn.Module):
 
     def forward(self, x):
         dt = self.compute_dtype
-        y = x.to(dt) @ (self.weight.to(dt) * self.scale).t() + (self.bias * self.lr_mul).to(dt)
+        w = whole(self.weight).to(dt) * self.scale
+        y = x.to(dt) @ w.t() + (self.bias * self.lr_mul).to(dt)
         if self.activate:
             y = F.leaky_relu(y, 0.2) * SQRT2
         return y
@@ -120,7 +129,7 @@ class ModulatedConv2d(nn.Module):
 
     def hwio(self) -> torch.Tensor:
         """(kh, kw, Cin, Cout) view of the (1, out, in, k, k) weight."""
-        return self.weight[0].permute(2, 3, 1, 0)
+        return whole(self.weight)[0].permute(2, 3, 1, 0)
 
     def forward(self, x, s):
         return modulated_conv2d(x, self.hwio(), s, demodulate=self.demodulate,

@@ -121,6 +121,17 @@ def stream_ptr(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def launch(entry, t, what: str, *args) -> None:
+    """Call the C entry ``entry(*args, stream)`` with the CUDA runtime's
+    current device set to ``t``'s device, on that device's current stream,
+    and raise on its error. A C entry launches on the runtime's current
+    device, so without the guard a tensor on ``cuda:1`` in a process whose
+    current device is ``cuda:0`` would be launched on the wrong card."""
+    with torch.cuda.device(t.device):
+        rc = entry(*args, stream_ptr(t))
+    check(rc, what)
+
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

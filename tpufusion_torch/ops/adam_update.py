@@ -75,9 +75,8 @@ def adam_update_kernel(x, g, mu, nu, lr, bc1, bc2):
             raise ValueError(f"fused_adam: {name} must be a contiguous CUDA tensor")
     ptrs = (x.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr())
     vectorized = int(all(p % 16 == 0 for p in ptrs))
-    rc = fn(*ptrs, x.numel(), vectorized, float(lr), float(bc1), float(bc2),
-            _lib.stream_ptr(x))
-    _lib.check(rc, "fused_adam")
+    _lib.launch(fn, x, "fused_adam", *ptrs, x.numel(), vectorized, float(lr), float(bc1),
+                float(bc2))
     return x, mu, nu
 
 

@@ -89,9 +89,8 @@ def conv3x3_forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x, w = _lib.aligned16(x), _lib.aligned16(w)
     n, h, wd, c = x.shape
     y = torch.empty_like(x)
-    rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), n, h, wd, c, _lib.dtype_code(x),
-            _lib.stream_ptr(x))
-    _lib.check(rc, "conv3x3 forward")
+    _lib.launch(fn, x, "conv3x3 forward", x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                n, h, wd, c, _lib.dtype_code(x))
     return y
 
 
@@ -126,9 +125,8 @@ def conv3x3_weight_grad_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor
     nblocks = WGRAD_BLOCKS_PER_SM[x.dtype] * sms  # the most the kernel launches
     partial = torch.empty((nblocks, 3, 3, c, c), dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, c, c), dtype=torch.float32, device=x.device)
-    rc = fn(x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            n, h, wd, c, nblocks, _lib.dtype_code(x), _lib.stream_ptr(x))
-    _lib.check(rc, "conv3x3 weight grad")
+    _lib.launch(fn, x, "conv3x3 weight grad", x.data_ptr(), g.data_ptr(),
+                partial.data_ptr(), dw.data_ptr(), n, h, wd, c, nblocks, _lib.dtype_code(x))
     return dw
 
 

@@ -40,10 +40,8 @@ def pgd_update_kernel(adv, grad, images, alpha, eps, clip_min=-1.0, clip_max=1.0
     out = torch.empty_like(adv)
     ptrs = (adv.data_ptr(), grad.data_ptr(), images.data_ptr(), out.data_ptr())
     vectorized = int(all(p % 16 == 0 for p in ptrs))
-    rc = fn(*ptrs, adv.numel(), _lib.dtype_code(adv),
-            vectorized, float(alpha), float(eps), float(clip_min), float(clip_max),
-            _lib.stream_ptr(adv))
-    _lib.check(rc, "pgd_update")
+    _lib.launch(fn, adv, "pgd_update", *ptrs, adv.numel(), _lib.dtype_code(adv),
+                vectorized, float(alpha), float(eps), float(clip_min), float(clip_max))
     return out
 
 

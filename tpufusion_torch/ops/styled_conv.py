@@ -12,7 +12,11 @@ float32, and the epilogue rounds once. Its bounds on an H100 are in the
 source note; at C >= 128 it is operations-bound, at C = 32 / 1024^2
 memory-bound.
 
-The forward is the kernel; the backward is autograd of the composite
+The kernel is the CUDA implementation of the PyTorch operator
+``tpufusion::styled_conv`` (``torch.library.custom_op``), whose CPU
+implementation is the composite and whose fake implementation gives the
+output's shape, so that ``torch.export`` traces the synthesis to one node
+(``io/export.py``). Its backward is autograd of the composite
 ``styled_conv_reference``, recomputed, as ``_fsc_bwd`` does in JAX. Inside
 that recompute the 32/64-channel convs go through ``ops/conv3x3.py``.
 
@@ -106,39 +110,66 @@ def styled_conv_kernel(x, weight, style, noise, noise_strength, bias):
     if x.dtype == torch.bfloat16:
         x, s32, b = (_lib.aligned16(t) for t in (x, s32, b))
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    rc = fn(*[t.data_ptr() for t in (x, w_s, y, s32, sigma.contiguous(), b, noise2d)],
-            n, h, w, cin, cout, code, _lib.stream_ptr(x))
-    _lib.check(rc, "styled_conv")
+    _lib.launch(fn, x, "styled_conv",
+                *[t.data_ptr() for t in (x, w_s, y, s32, sigma.contiguous(), b, noise2d)],
+                n, h, w, cin, cout, code)
     return y
 
 
-class _StyledConv(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, weight, style, noise, noise_strength, bias):
-        ctx.save_for_backward(x, weight, style, noise, noise_strength, bias)
-        y = styled_conv_kernel(x, weight, style, noise, noise_strength, bias)
-        styled_conv.launches += 1
-        return y
+# ``tpufusion::styled_conv``: the kernel as a PyTorch operator, so that
+# ``torch.export`` traces the synthesis to one graph node (the ctypes launch
+# reads ``data_ptr()``, which a FakeTensor does not have) and the serving
+# process that loads the program runs this kernel.
+@torch.library.custom_op("tpufusion::styled_conv", mutates_args=(), device_types="cuda")
+def styled_conv_op(x: torch.Tensor, weight: torch.Tensor, style: torch.Tensor,
+                   noise: torch.Tensor, noise_strength: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """The fused kernel on CUDA tensors (one launch, counted)."""
+    y = styled_conv_kernel(x.contiguous(), weight, style, noise, noise_strength, bias)
+    styled_conv.launches += 1
+    return y
 
-    @staticmethod
-    def backward(ctx, g):
-        need = ctx.needs_input_grad
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(nd)
-                      for t, nd in zip(ctx.saved_tensors, need)]
-            y = styled_conv_reference(*inputs)
-            wrt = [t for t, nd in zip(inputs, need) if nd]
-            grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
-        return tuple(next(grads) if nd else None for nd in need)
+
+@styled_conv_op.register_kernel("cpu")
+def _styled_conv_cpu(x, weight, style, noise, noise_strength, bias):
+    # CPU tensors: the composite, the numbers the port gave before the op
+    return styled_conv_reference(x, weight, style, noise, noise_strength, bias)
+
+
+@styled_conv_op.register_fake
+def _styled_conv_fake(x, weight, style, noise, noise_strength, bias):
+    return x.new_empty(tuple(x.shape[:3]) + (weight.shape[3],))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _styled_conv_backward(ctx, g):
+    """Autograd of the composite, recomputed (JAX's ``_fsc_bwd``)."""
+    need = ctx.needs_input_grad
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(nd) for t, nd in zip(ctx.saved_tensors, need)]
+        y = styled_conv_reference(*inputs)
+        wrt = [t for t, nd in zip(inputs, need) if nd]
+        grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+    return tuple(next(grads) if nd else None for nd in need)
+
+
+styled_conv_op.register_autograd(_styled_conv_backward, setup_context=_setup_context)
 
 
 def styled_conv(x, weight, style, noise, noise_strength, bias):
-    """Non-upsampling styled conv. CPU tensors, and shapes the kernel does not
-    take, run the composite; CUDA tensors of the kernel's shapes launch it
-    (or raise)."""
-    if x.device.type == "cpu" or not supported(x.shape, weight.shape, noise.shape):
+    """Non-upsampling styled conv. Shapes the kernel does not take run the
+    composite; the rest go through ``tpufusion::styled_conv``, which
+    launches the kernel on CUDA tensors (or raises) and runs the composite
+    on CPU tensors."""
+    if not supported(x.shape, weight.shape, noise.shape):
         return styled_conv_reference(x, weight, style, noise, noise_strength, bias)
-    return _StyledConv.apply(x.contiguous(), weight, style, noise, noise_strength, bias)
+    if x.device.type not in ("cpu", "cuda"):
+        # the operator has no implementation there: the launch's checks raise
+        return styled_conv_kernel(x.contiguous(), weight, style, noise, noise_strength, bias)
+    return styled_conv_op(x, weight, style, noise, noise_strength, bias)
 
 
 styled_conv.launches = 0

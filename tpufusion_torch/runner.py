@@ -7,9 +7,10 @@ benign-fusion / attack / partial-fusion / metrics loop
 (`attack_main2.py:990-1111`, `interpolation.py:1267-1451`) and the hybrid
 splice (`attack_main2.py:1114-1151`).
 
-Single device: the JAX package's ``mesh`` routes (its sharded attacks and
-group-parallel evaluation) wait for the port's scale-out, ROADMAP A.11; a
-mesh of more than one device raises. Randomness comes from an explicit
+With a ``mesh`` of more than one device (``parallel.create_mesh``; one
+process per device, every rank running this code alike) the optimisation
+attacks take their data-parallel forms (``parallel/sharding.py``).
+Randomness comes from an explicit
 ``torch.Generator`` on the pipeline's device, split into one fresh generator
 per attack; PyTorch's draws are not JAX's threefry draws, so the random
 attacks (PGD starts, ``dp_noise``, the patch draws) and
@@ -45,26 +46,16 @@ from tpufusion_torch.attacks.whitebox import (
     run_whitebox,
 )
 from tpufusion_torch.configs import AttackRunConfig
+from tpufusion_torch.core.prng import split_generator
 from tpufusion_torch.eval import ResultsTable, benign_fusion, fused_image_metrics, partial_adv_fusion
 from tpufusion_torch.eval.metrics import mse_per_image
 from tpufusion_torch.io import ArtifactStore, new_adv_dir, new_run_folder, save_image, save_montage, write_parameters
 from tpufusion_torch.io.artifacts import to_numpy
 from tpufusion_torch.pipeline import FusionPipeline
 
-SCALE_OUT = ("multi-device meshes are not ported yet: the sharded attacks, the "
-             "group-parallel fusion attack and evaluation wait for the port's "
-             "scale-out (ROADMAP A.11)")
-
 
 def _device(pipeline: FusionPipeline) -> torch.device:
     return pipeline.generator.device
-
-
-def split_generator(generator: torch.Generator) -> torch.Generator:
-    """A fresh generator on ``generator``'s device, seeded by one draw from
-    it: the port's ``jax.random.split``."""
-    seed = torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device)
-    return torch.Generator(device=generator.device).manual_seed(int(seed.item()))
 
 
 def _draw_seed(generator: torch.Generator) -> int:
@@ -72,10 +63,15 @@ def _draw_seed(generator: torch.Generator) -> int:
                              device=generator.device).item())
 
 
-def check_mesh(mesh) -> None:
-    """Accept no mesh or a one-device mesh; raise for more (ROADMAP A.11)."""
-    if mesh is not None and getattr(mesh, "size", 1) > 1:
-        raise NotImplementedError(SCALE_OUT)
+def uses_mesh(mesh) -> bool:
+    """A mesh of more than one device: the sharded routes."""
+    return mesh is not None and mesh.size() > 1
+
+
+def shards_generator(mesh) -> bool:
+    """A mesh whose ``model`` axis shards the generator: every generator
+    forward is then a collective that every rank must run."""
+    return mesh is not None and mesh.size(1) > 1
 
 
 def run_hybrid_from_dirs(pipeline: FusionPipeline, cfg: AttackRunConfig,
@@ -223,10 +219,17 @@ def dispatch_attack(
     """``main_optimize`` equivalent: returns a LIST of adversarial batches
     (out_domain_single yields one batch per substituted index,
     `attack_main2.py:390-395`). ``generator`` (on the pipeline's device)
-    draws whatever the attack draws. A ``mesh`` of more than one device
-    raises (ROADMAP A.11)."""
-    check_mesh(mesh)
+    draws whatever the attack draws; every rank's is seeded alike.
+
+    With a multi-device ``mesh`` (``--mesh`` on the CLI), every optimisation
+    attack routes through its data-parallel form: ``white_box_*`` via
+    ``run_whitebox_sharded``, ``patch_white_box`` training via
+    ``train_patch_sharded``, ``pgd``/``fgsm``/``pgd_classifier`` via
+    ``run_pgd_sharded`` and ``cw``/``cw_classifier`` via ``run_cw_sharded``;
+    each is held to its single-device form in
+    ``tests/test_torch_parallel.py``."""
     size = pipeline.image_size
+    use_mesh = uses_mesh(mesh)
     device = _device(pipeline)
 
     if attack == "dp_noise":
@@ -278,8 +281,14 @@ def dispatch_attack(
                 def _plog(epoch, i, trace):
                     plog.append((epoch, i, trace))
 
-            canvas, mask = train_patch(pipeline, imgs, generator, pcfg,
-                                       target_img, log_fn=_plog)
+            if use_mesh:
+                from tpufusion_torch.parallel import train_patch_sharded
+
+                canvas, mask = train_patch_sharded(pipeline, imgs, generator, pcfg, mesh,
+                                                   target_img, log_fn=_plog)
+            else:
+                canvas, mask = train_patch(pipeline, imgs, generator, pcfg,
+                                           target_img, log_fn=_plog)
             if run_dir and plog:
                 plog = [
                     f"epoch {e} img {i} count {c} loss:{float(v):.5f}"
@@ -297,8 +306,10 @@ def dispatch_attack(
 
     if attack in ("white_box_target", "white_box_patch"):
         # mid-run snapshots only when there's somewhere to write them
-        # (reference `args.save_img` gate, `attack_main2.py:657`)
-        snap_every = cfg.snapshot_every if run_dir and cfg.snapshot_every else None
+        # (reference `args.save_img` gate, `attack_main2.py:657`); the
+        # sharded route takes none
+        snap_every = (cfg.snapshot_every if run_dir and cfg.snapshot_every and not use_mesh
+                      else None)
         accum = max(int(cfg.whitebox_grad_accum or 1), 1)
         execution = resolve_whitebox_execution(
             cfg.whitebox_execution, bool(snap_every))
@@ -319,7 +330,16 @@ def dispatch_attack(
             target = paste_patch(inputs, target_img, cfg.paste_times)
         else:
             target = target_img
-        if snap_every:
+        if use_mesh:
+            if accum > 1:
+                raise ValueError(
+                    "whitebox_grad_accum > 1 is a single-chip activation "
+                    "lever; with --mesh the DP sharding already splits the "
+                    "batch across devices — drop one of the two")
+            from tpufusion_torch.parallel import run_whitebox_sharded
+
+            adv, tr = run_whitebox_sharded(pipeline, inputs, target, wcfg, cfg.which_adv, mesh)
+        elif snap_every:
             adv, tr, snaps = run_whitebox(pipeline, inputs, target, wcfg,
                                           cfg.which_adv)
             # reference names: adv_input_<name>_<iter>.png / rec_...
@@ -361,7 +381,13 @@ def dispatch_attack(
         else:
             pcfg = PGDConfig(eps=eps, alpha=cfg.pgd_alpha * 2.0,
                              steps=cfg.pgd_steps, random_start=True)
-        adv, tr = make_pgd(loss, pcfg)(inputs, generator, latent_org)
+        if use_mesh:
+            from tpufusion_torch.parallel import run_pgd_sharded
+
+            adv, tr = run_pgd_sharded(loss, pcfg, inputs, generator, (latent_org,), ("batch",),
+                                      mesh)
+        else:
+            adv, tr = make_pgd(loss, pcfg)(inputs, generator, latent_org)
         write_loss_log(run_dir, attack, tr)
         return [adv]
 
@@ -396,7 +422,13 @@ def dispatch_attack(
 
         pcfg = PGDConfig(eps=cfg.pgd_eps * 2.0, alpha=cfg.pgd_alpha * 2.0,
                          steps=cfg.pgd_steps, random_start=True)
-        adv, tr = make_pgd(ce_loss, pcfg)(inputs, generator, model, labels)
+        if use_mesh:
+            from tpufusion_torch.parallel import run_pgd_sharded
+
+            adv, tr = run_pgd_sharded(ce_loss, pcfg, inputs, generator, (model, labels),
+                                      ("rep", "batch"), mesh)
+        else:
+            adv, tr = make_pgd(ce_loss, pcfg)(inputs, generator, model, labels)
         write_loss_log(run_dir, attack, tr)
         if run_dir:
             # persist the transfer crops exactly how the reference reloads
@@ -414,7 +446,13 @@ def dispatch_attack(
         with torch.no_grad():
             labels = logits_fn(model, inputs).argmax(dim=-1)
         cwcfg = CWConfig(steps=cfg.cw_steps, lr=0.01)  # c = ref 1e-4 default
-        adv, best_l2 = make_cw(lambda x, m: logits_fn(m, x), cwcfg)(inputs, labels, model)
+        if use_mesh:
+            from tpufusion_torch.parallel import run_cw_sharded
+
+            adv, best_l2 = run_cw_sharded(lambda x, m: logits_fn(m, x), cwcfg, inputs, labels,
+                                          (model,), ("rep",), mesh)
+        else:
+            adv, best_l2 = make_cw(lambda x, m: logits_fn(m, x), cwcfg)(inputs, labels, model)
         write_loss_log(run_dir, attack, best_l2, kind="per_image")
         if run_dir:
             save_montage(adv, os.path.join(
@@ -458,13 +496,13 @@ def run_experiment(
     |None, ...]}`` — precomputed adversarial inputs that replace that
     attack's dispatch; an ``evals`` entry carries that batch's
     ``noise/part_sp/part_ar/cri_*/vg_*/ss_*`` and replaces the per-batch
-    partial-fusion + metric computation below. A ``mesh`` of more than one
-    device raises (ROADMAP A.11).
+    partial-fusion + metric computation below (the group-parallel
+    evaluation, ``parallel.make_sharded_group_eval``). ``mesh`` routes the
+    heavy attacks through their sharded forms (see ``dispatch_attack``).
 
     Returns a dict of results (and writes images/artifacts when
     ``save_root``).
     """
-    check_mesh(mesh)
     results: dict = {}
     n = inputs.shape[0]
     device = _device(pipeline)
@@ -576,13 +614,16 @@ def run_experiment(
                 vg_spatial=vg_sp, vg_arith=vg_ar,
                 ssim_spatial=ss_sp, ssim_arith=ss_ar,
             ))
-            if store is not None:
-                store.append("all_adv_inputs", adv)
+            if store is not None or shards_generator(mesh):
+                # with the generator sharded over 'model', every rank runs
+                # this forward (a collective); the writing rank stores it
                 with torch.no_grad():
                     if adv_latents is None:
                         adv_latents = pipeline.get_latents(adv)
                     adv_singles, _ = pipeline.drawer.w_plus_to_image(adv_latents)
-                    store.append("all_adv_rec_loss", mse_per_image(adv, adv_singles))
+            if store is not None:
+                store.append("all_adv_inputs", adv)
+                store.append("all_adv_rec_loss", mse_per_image(adv, adv_singles))
                 save_montage(adv, os.path.join(store.run_dir, f"adv_inputs_0_{bi}_all.jpg"), nrow=n)
                 save_image(part_sp[-1:], os.path.join(store.run_dir, f"spatial_adv_fusion_0_{bi}_all.jpg"))
                 save_montage(part_sp, os.path.join(store.run_dir, f"spatial_partial_fusion_0_{bi}_all.jpg"), nrow=n + 1)
