@@ -1,6 +1,8 @@
 """``chip_smoke.py``'s kernel check fails a kernel whose output is not finite;
-its summaries and launch checks, phase 5d's patch-batch check, and phase
-5f's checks of the CLI's run folders, launches and landmarks.
+its summaries and launch checks, phase 5d's patch-batch check, phase 5f's
+checks of the CLI's run folders, launches and landmarks, and phase 5h's
+launch expectations of the car and church generators (conv3x3 exactly 0
+for church) and its run-folder check of their presets.
 
 The script's error helpers take ``torch`` as an argument and run on CPU
 tensors, so they are checked here without a card.
@@ -311,7 +313,7 @@ def test_summarize_carries_the_cli_run(smoke):
 
 
 def _write_run(root, attack, n=2, size=4, *, eps_move=0.0, rows=1, cols=None, nan=False,
-               skip=()):
+               skip=(), dataset="ffhq"):
     """A run folder as the runner writes it, with one fault to inject."""
     import json
 
@@ -319,7 +321,7 @@ def _write_run(root, attack, n=2, size=4, *, eps_move=0.0, rows=1, cols=None, na
 
     from tpufusion_torch.io.xlsx import write_xlsx
 
-    run = os.path.join(root, f"0_ffhq_{attack}")
+    run = os.path.join(root, f"0_{dataset}_{attack}")
     os.makedirs(os.path.join(run, "adversarial"))
     if "parameters.txt" not in skip:
         open(os.path.join(run, "parameters.txt"), "w").write("adversarial attack x\n")
@@ -471,3 +473,144 @@ def test_summarize_carries_the_sharded_run(smoke):
     assert by_name["conv3x3"]["parts"]["input_grad"]["launches_sharded_path"] == 20
     assert by_name["conv3x3"]["parts"]["input_grad"]["launches_resume_path"] == 4
     assert by_name["conv3x3"]["parts"]["weight_grad"]["launches_sharded_path"] == 0
+
+
+# ---------------------------------------------------------------------------
+# phase 5h: car 512^2 and church 256^2
+# ---------------------------------------------------------------------------
+
+def _plan(size):
+    """The config-f generator's ``conv_plan()`` at ``size``, without
+    building its weights (the plan reads only the size and the multiplier)."""
+    import types
+
+    from tpufusion_torch.models.stylegan2 import Generator
+
+    return Generator.conv_plan(types.SimpleNamespace(size=size, channel_multiplier=2))
+
+
+@pytest.mark.parametrize("size,expect", [(512, (8, 1)), (256, (7, 0)), (1024, (9, 2))])
+def test_family_expectations_come_from_the_plan(smoke, size, expect):
+    """styled_conv launches per synthesis forward and the convs whose
+    backward runs through conv3x3: car 8 and 1 (64 channels at 512^2),
+    church 7 and none (no 32/64-channel layer), FFHQ 9 and 2."""
+    assert smoke.family_expectations(_plan(size)) == expect
+
+
+def _family_runs(fam):
+    keys = ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "conv3x3_wgrad", "pgd_update",
+            "fused_adam")
+    per_fwd, n_c3 = {"car": (8, 1), "church": (7, 0)}[fam]
+    steps = 3
+
+    def c(styled=0, c3=0, pgd=0, adam=0):
+        return dict(zip(keys, (styled, c3, c3, 0, pgd, adam)))
+
+    runs = {"forwards": c(per_fwd * 3), "eval": c(2 * per_fwd),
+            "pgd_step": c(2 * per_fwd, 2 * n_c3, 1), "spatial_step": c(2 * per_fwd, n_c3, 1),
+            "whitebox": c(2 * per_fwd * steps, 2 * n_c3 * steps, 0, steps),
+            "classifier_pgd": c(0, 0, steps), "cli": c(100, 4 * n_c3, 2, 2)}
+    if fam == "car":
+        runs["cw"] = c(0, 0, 0, steps)
+    runs["all"] = c(400, 20 * n_c3, 20, 10)
+    return runs
+
+
+@pytest.mark.parametrize("fam", ["car", "church"])
+def test_family_launch_check_passes_a_good_run(smoke, fam):
+    assert smoke.FAMILY_STEPS == 3 and smoke.FAMILY_FWD == 3
+    size = smoke.FAMILY_STYLED[fam][1]
+    assert smoke.family_launch_failures(fam, _plan(size), _family_runs(fam)) == []
+
+
+@pytest.mark.parametrize("run,kernel,value,expect", [
+    ("all", "conv3x3_fwd", 1, "church all: conv3x3_fwd launched 1 times, expected 0"),
+    ("all", "conv3x3_dgrad", 2, "church all: conv3x3_dgrad launched 2 times, expected 0"),
+    ("all", "conv3x3_wgrad", 1, "church all: conv3x3_wgrad launched 1 times"),
+    ("forwards", "styled_conv", 27, "church forwards: styled_conv launched 27 times, "
+                                    "expected 21"),
+    ("eval", "styled_conv", 18, "church eval: styled_conv launched 18 times, expected 14"),
+    ("pgd_step", "pgd_update", 2, "church pgd_step: pgd_update launched 2 times, expected 1"),
+    ("whitebox", "fused_adam", 2, "church whitebox: fused_adam launched 2 times, expected 3"),
+    ("classifier_pgd", "fused_adam", 1, "church classifier_pgd: fused_adam launched 1 times"),
+])
+def test_church_launch_check(smoke, run, kernel, value, expect):
+    """Church's generator has no 32/64-channel conv: a conv3x3 launch
+    anywhere in its phase is a failure, as is any count off the plan's."""
+    runs = _family_runs("church")
+    runs[run] = {**runs[run], kernel: value}
+    assert expect in "; ".join(smoke.family_launch_failures("church", _plan(256), runs))
+
+
+@pytest.mark.parametrize("run,kernel,value,expect", [
+    ("pgd_step", "conv3x3_fwd", 0, "car pgd_step: conv3x3_fwd launched 0 times, expected >= 1"),
+    ("spatial_step", "conv3x3_dgrad", 0, "car spatial_step: conv3x3_dgrad launched 0 times"),
+    ("cli", "conv3x3_fwd", 0, "car cli: conv3x3_fwd launched 0 times, expected > 0"),
+    ("cw", "fused_adam", 2, "car cw: fused_adam launched 2 times, expected 3"),
+    ("pgd_step", "styled_conv", 7, "car pgd_step: styled_conv launched 7 times, expected >= 8"),
+])
+def test_car_launch_check(smoke, run, kernel, value, expect):
+    runs = _family_runs("car")
+    runs[run] = {**runs[run], kernel: value}
+    assert expect in "; ".join(smoke.family_launch_failures("car", _plan(512), runs))
+
+
+def test_summarize_carries_the_family_runs(smoke):
+    """Phase 5h's records under their paths: the kernels timed at the car
+    and church shapes carry them under "car" and "church", and each entry
+    has both runs' launches; church's conv3x3 launches are 0."""
+    records = [_record("styled_conv", "pgd", 1.0), _record("styled_conv", "car", 2.0),
+               _record("styled_conv", "church", 0.7),
+               _record("conv3x3_fwd", "pgd", 0.2, lib=0.25),
+               _record("conv3x3_fwd", "car", 0.3, lib=0.35),
+               _record("conv3x3_dgrad", "car", 0.3, lib=1.5),
+               _record("pgd_update", "pgd", 0.04, dtype="float32"),
+               _record("pgd_update", "car", 0.02, dtype="float32"),
+               _record("pgd_update", "church", 0.01, dtype="float32"),
+               _record("fused_adam", "whitebox", 0.15, dtype="float32", lib=0.17),
+               _record("fused_adam", "car", 0.04, dtype="float32", lib=0.05),
+               _record("fused_adam", "church", 0.01, dtype="float32", lib=0.02)]
+    car, church = _family_runs("car"), _family_runs("church")
+    keys = tuple(car["all"])
+    runs = {"pgd": (dict(zip(keys, (81, 12, 12, 0, 6, 0))), dict(zip(keys, (9, 2, 2, 0, 1, 0)))),
+            "whitebox": (dict(zip(keys, (45, 10, 10, 0, 0, 5))),
+                         dict(zip(keys, (9, 2, 2, 0, 0, 1)))),
+            "car": (car["all"], car["pgd_step"]), "church": (church["all"], church["pgd_step"])}
+    by_name = {k["name"]: k for k in smoke.summarize(records, runs)}
+    styled = by_name["styled_conv"]
+    assert styled["car"]["ms"] == 2.0 and styled["church"]["ms"] == 0.7
+    assert styled["launches_car_path"] == styled["launches_church_path"] == 400
+    assert styled["launches_per_car_step"] == 16 and styled["launches_per_church_step"] == 14
+    assert styled["launches"] == 81 + 45 + 400 + 400
+    conv = by_name["conv3x3"]
+    assert conv["car"]["ms"] == pytest.approx(0.6) and conv["car"]["library_ms"] == \
+        pytest.approx(1.85)
+    assert "church" not in conv and conv["launches_church_path"] == 0
+    assert conv["launches_car_path"] == 40 and conv["launches_per_car_step"] == 4
+    assert by_name["pgd_update"]["car"]["ms"] == 0.02
+    assert by_name["pgd_update"]["church"]["ms"] == 0.01
+    adam = by_name["fused_adam"]
+    assert adam["ms"] == 0.15 and adam["car"]["ms"] == 0.04 and adam["church"]["ms"] == 0.01
+    assert adam["launches_car_path"] == adam["launches_church_path"] == 10
+    for k in by_name.values():
+        for key in ("route", "replaces", "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            assert key in k, (k["name"], key)
+
+
+@pytest.mark.parametrize("fam", ["car", "church"])
+def test_cli_run_check_reads_the_family_folders(smoke, tmp_path, fam):
+    """Phase 5h's attack_run writes ``<k>_<family>_<attack>`` folders; the
+    check finds them by the family's name, and an FFHQ folder is not one."""
+    attacks = ("white_box_target", "fusion_pgd_spatial", "blur")
+    for attack in attacks:
+        _write_run(str(tmp_path), attack, n=3, eps_move=0.05, dataset=fam)
+    assert smoke.cli_run_failures(str(tmp_path), attacks, 3, 4, pgd_attacks=(
+        "fusion_pgd_spatial",), dataset=fam) == []
+    assert smoke.cli_run_failures(str(tmp_path), attacks, 3, 4)[0] == \
+        f"white_box_target: 0 run folders under {tmp_path}, expected 1"
+
+
+def test_montage_size_of_fuse(smoke):
+    assert smoke._montage_size(32) == (6 * 34 + 2, 36)
+    assert smoke._montage_size(512) == (6 * 514 + 2, 516)
