@@ -24,6 +24,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    also at tiny and ragged planes where the border is a large share of the
    sum, to its own 1e-3 limit, with two launches giving the same bits;
    beside styled_conv, cuDNN's conv core (``conv_core_library_ms``);
+   pgd_update and fused_adam are held bit-exact also on views 4 bytes off
+   a 16-byte boundary (all streams, and one stream alone), and timed three
+   ways at every timed shape: the device ms a launch with the card never
+   waiting on the host (``GRAPH_LAUNCHES`` launches captured in one CUDA
+   graph, replayed between CUDA events), on a cold L2 (the launches cycle
+   over copies of the buffers, ~192 MB apart) and back to back on the same
+   buffers (warm), the host us a wrapper call
+   (``time.perf_counter`` over ``HOST_CALLS`` calls, no synchronize inside)
+   and ``time_ms``'s reading (events around back-to-back calls, the host's
+   time where a call is short), beside the launch floor: an empty kernel
+   timed the same ways; every timed conv kernel's host us a call and
+   its device ms by graph replay;
 3b. the weight grad through the real call chain: ``styled_conv`` with a
    weight that requires grad at the two tail shapes (batch 1 and 5, bf16)
    against autograd through ``styled_conv_plain``, then one full-width
@@ -137,6 +149,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``{"ok": true, "device": {...}}``.
 
 Per-shape kernel numbers also go to ``runs/chip_smoke/chip_smoke_kernels.json``.
+``python3 chip_smoke.py --kernels-only`` runs phases 1-3 alone, writes that
+file and prints no result line: the quick reading of the kernels.
 This script imports nothing of JAX or of the JAX package ``tpufusion``.
 """
 
@@ -179,7 +193,11 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, iters=10, warmup=2) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events over ``iters`` calls."""
+    """Mean ms a call of ``fn`` by CUDA events around ``iters`` back-to-back
+    calls. Where a call's host work (checks, allocation, the launch) takes
+    longer than its kernels, the card waits for the host between calls and
+    this reads the host's time, not the device's: ``graph_ms`` reads a
+    short kernel's device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -191,6 +209,156 @@ def time_ms(torch, fn, iters=10, warmup=2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+GRAPH_LAUNCHES = 20  # calls captured in one CUDA graph
+GRAPH_REPLAYS = 5
+HOST_CALLS = 100  # far below the launch queue's depth, so the host never waits
+HOST_REPEATS = 3
+
+
+SETTLE_BYTES = 1 << 30  # a release of cached device memory larger than this ...
+SETTLE_S = 0.1  # ... is waited out for this long before a timing
+
+
+def release_cache(torch):
+    """Give the allocator's cached blocks back to CUDA (``empty_cache``),
+    and wait ``SETTLE_S`` where that freed more than ``SETTLE_BYTES``. For some ms
+    after a large release (13 GiB once phase 3's conv cases have run),
+    memory-bound kernels run slower: without the wait, phase 3 read
+    ``pgd_update`` at 2 x 1024^2 x 3 about 15% slow (PERF.md section 6)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    if before - torch.cuda.memory_reserved() > SETTLE_BYTES:
+        time.sleep(SETTLE_S)
+
+
+def graph_ms(torch, fn, launches=GRAPH_LAUNCHES, replays=GRAPH_REPLAYS):
+    """Device ms a call of ``fn`` with the card never waiting on the host:
+    ``launches`` calls captured in one CUDA graph, the graph replayed
+    ``replays`` times, each replay between CUDA events; the ms a call of
+    each replay, sorted. ``fn`` must be capturable (its outputs come from
+    the graph's own memory pool). ``torch.cuda.graph`` empties the
+    allocator's cache as its capture starts, so the cache is released, and
+    a large release waited out, before anything is timed."""
+    release_cache(torch)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / launches)
+    del graph
+    return sorted(per)
+
+
+def host_us(torch, fn, calls=HOST_CALLS, repeats=HOST_REPEATS):
+    """Host us a call of ``fn``: ``time.perf_counter`` over ``calls`` calls
+    with no synchronize inside (the card runs behind and the host never
+    waits for it), ``repeats`` times; sorted."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e6 / calls)
+        torch.cuda.synchronize()
+    return sorted(per)
+
+
+COLD_BYTES = 192 << 20  # bytes passed between two uses of a buffer: ~4x the 50 MB L2
+
+
+def cold_ms(torch, call, tensors):
+    """Device ms a call of ``call(*tensors)`` on a cold L2, as a step finds
+    the pixel buffers: ``graph_ms`` with the captured launches cycling over
+    copies of ``tensors``, so many that more than ``COLD_BYTES`` of the
+    other copies pass between two uses of one. Sorted, one a replay."""
+    set_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = max(2, min(GRAPH_LAUNCHES, -(-COLD_BYTES // set_bytes) + 1))
+    sets = [tensors] + [[t.clone() for t in tensors] for _ in range(copies - 1)]
+    turn = [0]
+
+    def rotating():
+        turn[0] += 1
+        return call(*sets[turn[0] % copies])
+    ms = graph_ms(torch, rotating)
+    del sets
+    return ms
+
+
+# An empty kernel, launched through the port's launch helper as every kernel
+# is: the floor under a pixel update's device ms and host us.
+FLOOR_SRC = r"""// An empty kernel: what any launch costs (chip_smoke.py phase 3).
+#include <cuda_runtime.h>
+__global__ void tf_empty_kernel() {}
+extern "C" int tf_empty(int blocks, int threads, void* stream) {
+  tf_empty_kernel<<<blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_floor_build(_lib):
+    """Start nvcc on the empty kernel (beside phase 2's builds); returns the
+    process and the library's path."""
+    _lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _lib.BUILD_DIR / "launch_floor.cu"
+    src.write_text(FLOOR_SRC)
+    so = _lib.BUILD_DIR / "liblaunch_floor.so"
+    cmd = [_lib.nvcc_path(), *_lib.NVCC_FLAGS, "-o", str(so), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), so
+
+
+def finish_floor_build(proc, so):
+    import ctypes
+
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        fail(f"nvcc launch_floor.cu failed ({proc.returncode}):\n{out}")
+    lib = ctypes.CDLL(str(so))
+    lib.tf_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.tf_empty.restype = ctypes.c_int
+    return lib
+
+
+def launch_floor(torch, lib, card):
+    """The empty kernel's device ms a launch (one block, and one block of
+    256 threads for each of 4 x the SMs) and host us a launch, timed as the
+    pixel updates are."""
+    from tpufusion_torch.ops import _lib
+
+    t = torch.empty(1, device="cuda")
+    grid = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    one = graph_ms(torch, lambda: _lib.launch(lib.tf_empty, t, "empty kernel", 1, 256))
+    full = graph_ms(torch, lambda: _lib.launch(lib.tf_empty, t, "empty kernel", grid, 256))
+    host = host_us(torch, lambda: _lib.launch(lib.tf_empty, t, "empty kernel", 1, 256))
+    log(f"  launch floor (empty kernel): device {statistics.median(one) * 1e3:.2f} us a launch of 1 "
+        f"block ({one[0] * 1e3:.2f}-{one[-1] * 1e3:.2f}), {statistics.median(full) * 1e3:.2f} us of "
+        f"{grid} blocks ({full[0] * 1e3:.2f}-{full[-1] * 1e3:.2f}); host "
+        f"{statistics.median(host):.2f} us a launch ({host[0]:.2f}-{host[-1]:.2f}) [{card}]")
+    return dict(floor_ms=statistics.median(one), floor_ms_range=[one[0], one[-1]],
+                floor_grid_ms=statistics.median(full), floor_grid_blocks=grid,
+                floor_host_us=statistics.median(host), floor_host_us_range=[host[0], host[-1]])
 
 
 def bound_ms(nbytes: float, ops: float, dtype: str):
@@ -261,8 +429,40 @@ def _within(err: float, rel: float, tol: float) -> bool:
     return math.isfinite(err) and math.isfinite(rel) and rel <= tol
 
 
-def check_kernels(torch, records):
-    """Every kernel against its plain twin; returns the per-kernel summary."""
+# views of the pixel updates' streams, bytes past a 16-byte boundary: (every
+# stream but the second, the second) -- all aligned, all 4 bytes off (the
+# body still streams), and one stream alone off (the scalar path throughout)
+PIXEL_OFFSETS = {"": (0, 0), " unaligned": (4, 4), " mixed offsets": (0, 4)}
+
+
+def offset_copy(torch, t, nbytes):
+    """A contiguous copy of ``t`` starting ``nbytes`` past a 16-byte boundary."""
+    k = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    return buf[k:].copy_(t.reshape(-1)).view(t.shape)
+
+
+def pixel_timings(torch, call, tensors, bound):
+    """A pixel update's readings for ``call(*tensors)``: device ms a launch
+    on a cold L2 (the record's ms) and back to back on the same buffers
+    (``warm_ms``: what the L2 keeps of them between launches helps), both by
+    graph replay; host us a wrapper call; ``time_ms``'s reading; the share
+    of the bound (cold)."""
+    def fn():
+        return call(*tensors)
+    cold = cold_ms(torch, call, tensors)
+    warm = graph_ms(torch, fn)
+    host = host_us(torch, fn)
+    return dict(ms=statistics.median(cold), graph_ms_range=[cold[0], cold[-1]], warm_ms=statistics.median(warm),
+                warm_ms_range=[warm[0], warm[-1]], event_ms=time_ms(torch, fn),
+                host_us=statistics.median(host), host_us_range=[host[0], host[-1]],
+                bound_share=bound / statistics.median(cold))
+
+
+def check_kernels(torch, records, floor=None):
+    """Every kernel against its plain twin; the records of every case go to
+    ``records``. ``floor`` (``launch_floor``'s numbers) goes into each
+    timed pixel-update record."""
     from tpufusion_torch.ops import adam_update as au
     from tpufusion_torch.ops import conv3x3 as c3
     from tpufusion_torch.ops import pgd_update as pu
@@ -278,20 +478,41 @@ def check_kernels(torch, records):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def record(kernel, case, dtype, err, rel, ms=None, plain=None, lib=None, nbytes=0,
-               ops=0, path=None, core=None):
+               ops=0, path=None, core=None, fn=None, pixel=None):
+        """``fn``: the kernel's call, for its host us; ``pixel``: a pixel
+        update's ``pixel_timings``, whose device ms is the record's ms."""
         tol = 0.0 if kernel in EXACT else KERNEL_TOL.get((kernel, dtype), TOL[dtype])
         ok = _within(err, rel, tol)
         b, by = bound_ms(nbytes, ops, dtype) if nbytes else (None, None)
+        extra = {}
+        if pixel is not None:
+            extra = {**pixel, **(floor or {})}
+            ms = extra.pop("ms")
+        elif fn is not None and ms is not None:
+            host = host_us(torch, fn)
+            dev = graph_ms(torch, fn)
+            extra = dict(host_us=statistics.median(host), host_us_range=[host[0], host[-1]],
+                         graph_ms=statistics.median(dev), graph_ms_range=[dev[0], dev[-1]])
         records.append(dict(kernel=kernel, case=case, dtype=dtype, max_abs_err=err,
                             rel_err=rel, tol=tol, ok=ok, ms=ms, plain_ms=plain,
                             library_ms=lib, conv_core_library_ms=core, bound_ms=b,
-                            bound_by=by, path=path if ms is not None else None))
+                            bound_by=by, path=path if ms is not None else None, **extra))
         log(f"  {kernel:14s} {case:22s} {dtype:8s} max_abs_err {err:.3e} "
             f"(rel {rel:.3e}, tol {tol:.0e}) {'ok' if ok else 'FAIL'}"
             + (f"  kernel {ms:.4f} ms plain {plain:.4f} ms bound {b:.4f} ms ({by})"
                if ms is not None else "")
             + (f" library {lib:.4f} ms" if lib is not None else "")
-            + (f" conv core (cuDNN) {core:.4f} ms" if core is not None else ""))
+            + (f" conv core (cuDNN) {core:.4f} ms" if core is not None else "")
+            + (f" host {extra['host_us']:.2f} us a call, device {extra['graph_ms']:.4f} ms "
+               "(graph)" if fn is not None and extra else ""))
+        if pixel is not None:
+            rng, hr, wr = extra["graph_ms_range"], extra["host_us_range"], extra["warm_ms_range"]
+            log(f"    device {ms:.4f} ms a launch on a cold L2 ({rng[0]:.4f}-{rng[1]:.4f}, graph "
+                f"replay), {extra['bound_share']:.1%} of the bound; warm {extra['warm_ms']:.4f} "
+                f"({wr[0]:.4f}-{wr[1]:.4f}); host {extra['host_us']:.2f} us a call "
+                f"({hr[0]:.2f}-{hr[1]:.2f}); time_ms {extra['event_ms']:.4f} ms"
+                + (f"; floor {extra['floor_ms'] * 1e3:.2f} us device, "
+                   f"{extra['floor_host_us']:.2f} us host" if floor else ""))
         if not ok:
             failures.append(f"{kernel} {case} {dtype}: rel err {rel:.3e} > {tol}")
 
@@ -315,7 +536,8 @@ def check_kernels(torch, records):
                       xn, (ch, ch, 3, 3), gn, padding=1)))
                  if timed else (None, None, None)),
                nbytes=2 * x.numel() * x.element_size() + 9 * ch * ch * 4,
-               ops=2 * 9 * ch * ch * n * h * wd, path=path)
+               ops=2 * 9 * ch * ch * n * h * wd, path=path,
+               fn=lambda: c3.conv3x3_weight_grad_kernel(x, g))
 
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
@@ -346,7 +568,8 @@ def check_kernels(torch, records):
             record("styled_conv", case, dtype_name, err, rel, ms, plain,
                    nbytes=n * h * wd * (cin + cout) * isz + 9 * cin * cout * isz,
                    ops=2 * 9 * cin * cout * n * h * wd, path=path,
-                   core=_conv_core_ms(torch, *args) if timed else None)
+                   core=_conv_core_ms(torch, *args) if timed else None,
+                   fn=lambda: sc.styled_conv_kernel(*args))
         # low-channel conv: forward, input grad, weight grad; then the
         # ragged edges (untimed)
         conv_cases = [(n, res, res, ch, path) for (n, res, ch), path in CONV_SHAPES.items()]
@@ -370,7 +593,8 @@ def check_kernels(torch, records):
                       time_ms(torch, lambda: c3.conv3x3_plain(x, w)),
                       time_ms(torch, lambda: torch.nn.functional.conv2d(xn, wn, padding=1)))
                      if timed else (None, None, None)),
-                   nbytes=2 * act + 9 * ch * ch * isz, ops=ops, path=path)
+                   nbytes=2 * act + 9 * ch * ch * isz, ops=ops, path=path,
+                   fn=lambda: c3.conv3x3_forward_kernel(x, w))
 
             dx = c3.conv3x3_input_grad_kernel(g, w)
             torch.cuda.synchronize()
@@ -381,54 +605,63 @@ def check_kernels(torch, records):
                       time_ms(torch, lambda: torch.nn.grad.conv2d_input(
                           xn.shape, wn, gn, padding=1)))
                      if timed else (None, None, None)),
-                   nbytes=2 * act + 9 * ch * ch * isz, ops=ops, path=path)
+                   nbytes=2 * act + 9 * ch * ch * isz, ops=ops, path=path,
+                   fn=lambda: c3.conv3x3_input_grad_kernel(g, w))
 
             check_wgrad(x, g, case, timed, path)
         for n, h, wd, ch in WGRAD_RAGGED:
             check_wgrad(rn(n, h, wd, ch, dtype=dt), rn(n, h, wd, ch, dtype=dt),
                         f"n{n} {h}x{wd} c{ch}", False, None)
-        # PGD update: the main-path shape and an odd size
+        # PGD update: the main-path shapes and an odd size, aligned and on
+        # views off a 16-byte boundary
         for shape, path in PGD_SHAPES.items():
             adv = rn(*shape, dtype=dt).clamp(-1, 1)
             img = (adv.float() + 0.01 * rn(*shape, dtype=torch.float32)).clamp(-1, 1).to(dt)
             grd = rn(*shape, dtype=dt)
-            args = (adv, grd, img, 0.02, 16 / 255, -1.0, 1.0)
-            out = pu.pgd_update_kernel(*args)
-            torch.cuda.synchronize()
-            err, rel = _err(torch, out, pu.pgd_update_plain(*args))
-            timed = dtype_name == "float32" and path is not None
             numel = adv.numel()
-            record("pgd_update", "x".join(map(str, shape)), dtype_name, err, rel,
-                   time_ms(torch, lambda: pu.pgd_update_kernel(*args)) if timed else None,
-                   time_ms(torch, lambda: pu.pgd_update_plain(*args)) if timed else None,
-                   nbytes=4 * numel * isz, ops=7 * numel, path=path)
+            for suffix, (off, off2) in PIXEL_OFFSETS.items():
+                views = (offset_copy(torch, adv, off), offset_copy(torch, grd, off2),
+                         offset_copy(torch, img, off))
+                args = (*views, 0.02, 16 / 255, -1.0, 1.0)
+                out = pu.pgd_update_kernel(*args)
+                torch.cuda.synchronize()
+                err, rel = _err(torch, out, pu.pgd_update_plain(*args))
+                timed = dtype_name == "float32" and path is not None and not suffix
+                nbytes = 4 * numel * isz
+                record("pgd_update", "x".join(map(str, shape)) + suffix, dtype_name, err, rel,
+                       plain=time_ms(torch, lambda: pu.pgd_update_plain(*args)) if timed else None,
+                       nbytes=nbytes, ops=7 * numel, path=path,
+                       pixel=pixel_timings(
+                           torch, lambda *t: pu.pgd_update_kernel(*t, *args[3:]), views,
+                           bound_ms(nbytes, 7 * numel, dtype_name)[0]) if timed else None)
     # fused Adam (float32 only): the white-box pixel buffer and an odd size,
-    # aligned and 4 bytes off alignment, at steps 1 and 50
+    # aligned and on views off a 16-byte boundary, at steps 1 and 50
     for shape, path in ADAM_SHAPES.items():
         for count in (1, 50):
             bc1, bc2 = au.bias_corrections(count)
             state = [rn(*shape, dtype=torch.float32) for _ in range(4)]
             state[2] *= 0.1
             state[3] = state[3].square() * 0.01
-            for off in (0, 1):
-                x, g, mu, nu = ([torch.empty(t.numel() + off, device=dev)[off:].copy_(
-                    t.reshape(-1)).view(shape) for t in state])
+            for suffix, (off, off2) in PIXEL_OFFSETS.items():
+                x, g, mu, nu = (offset_copy(torch, t, off2 if i == 1 else off)
+                                for i, t in enumerate(state))
                 want = au.adam_update_plain(x.clone(), g, mu.clone(), nu.clone(), 1e-4,
                                             bc1, bc2)
                 au.adam_update_kernel(x, g, mu, nu, 1e-4, bc1, bc2)
                 torch.cuda.synchronize()
                 err = max(_err(torch, a, b)[0] for a, b in zip((x, mu, nu), want))
-                timed = path is not None and count == 1 and off == 0
+                timed = path is not None and count == 1 and not suffix
                 numel = x.numel()
-                case = "x".join(map(str, shape)) + f" t{count}" + (" unaligned" if off else "")
+                case = "x".join(map(str, shape)) + f" t{count}" + suffix
                 record("fused_adam", case, "float32", err, err,
-                       *((time_ms(torch, lambda: au.adam_update_kernel(x, g, mu, nu, 1e-4,
-                                                                     bc1, bc2)),
-                          time_ms(torch, lambda: au.adam_update_plain(x, g, mu, nu, 1e-4,
-                                                                    bc1, bc2)),
-                          _torch_adam_ms(torch, x, g))
-                         if timed else (None, None, None)),
-                       nbytes=7 * numel * 4, ops=12 * numel, path=path if timed else None)
+                       plain=time_ms(torch, lambda: au.adam_update_plain(
+                           x, g, mu, nu, 1e-4, bc1, bc2)) if timed else None,
+                       lib=_torch_adam_ms(torch, x, g) if timed else None,
+                       nbytes=7 * numel * 4, ops=12 * numel, path=path if timed else None,
+                       pixel=pixel_timings(
+                           torch, lambda *t: au.adam_update_kernel(*t, 1e-4, bc1, bc2),
+                           (x, g, mu, nu), bound_ms(7 * numel * 4, 12 * numel, "float32")[0])
+                       if timed else None)
     torch.backends.cudnn.allow_tf32 = True
     if failures:
         fail("kernel disagrees with its plain version: " + "; ".join(failures))
@@ -478,6 +711,12 @@ def _numbers(rs, path="pgd"):
         "bound_by": "bytes" if by_bytes >= bound - by_bytes else "operations",
         "library_ms": sum(lib) if lib and None not in lib else None,
         **({"conv_core_library_ms": sum(core)} if None not in core else {}),
+        # the host us a call, and a pixel update's time_ms reading and
+        # launch floor, summed over the same shapes
+        **{key: sum(r[key] for r in timed) for key in ("host_us", "event_ms", "warm_ms",
+                                                       "graph_ms")
+           if all(key in r for r in timed)},
+        **{key: timed[0][key] for key in ("floor_ms", "floor_host_us") if key in timed[0]},
         "shapes_timed": [f"{r['case']} {r['dtype']}" for r in timed],
     }
 
@@ -3053,8 +3292,8 @@ KERNEL_NAMES = (("conv3x3_mma_kernel<true", "styled_conv bf16"),
                 ("conv3x3_wgrad_mma_kernel", "conv3x3_wgrad bf16"),
                 ("conv3x3_wgrad_kernel", "conv3x3_wgrad fp32"),
                 ("sum_partials_kernel", "conv3x3_wgrad second pass"),
-                ("pgd_kernel", "pgd_update"),
-                ("adam_kernel", "fused_adam"))
+                ("PgdOp", "pgd_update"),
+                ("AdamOp", "fused_adam"))
 
 
 def _device_rows(prof):
@@ -3136,7 +3375,7 @@ def ptxas_summary(text: str):
     shown by its ``MmaTile`` / ``WgradTile`` arguments."""
     rows, name, spill = [], None, 0
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '_ZN2tf(\d+)(\w+)'", line)
+        m = re.search(r"Compiling entry function '_ZN(?:2tf|9tf_stream)(\d+)(\w+)'", line)
         if m:
             n = int(m.group(1))
             name, rest = m.group(2)[:n], m.group(2)[n:]
@@ -3148,7 +3387,9 @@ def ptxas_summary(text: str):
                 name += f"<{kind}{tile.group(1)}<{args}>>"
             elif rest.startswith("I"):
                 dtype = "float" if rest[1] == "f" else "bf16"
-                name += f"<{dtype}{', styled' if rest[2:6] == 'Lb1E' else ''}>"
+                unroll = re.search(r"Li(\d+)E+v", rest) if name == "stream_reg_kernel" else None
+                name += (f"<{dtype}{', styled' if rest[2:6] == 'Lb1E' else ''}"
+                         f"{f', U={unroll.group(1)}' if unroll else ''}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spill = int(m.group(1)) + int(m.group(2))
@@ -3159,7 +3400,14 @@ def ptxas_summary(text: str):
     return rows
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke test of tpufusion_torch on the card.")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="run phases 1-3 (build, kernels against their plain versions, "
+                             "their times) and stop, with no result line")
+    kernels_only = parser.parse_args(argv).kernels_only
     if not os.path.isfile(os.path.join(HERE, "tpufusion_torch", "__init__.py")):
         fail("tpufusion_torch/ not found beside chip_smoke.py: run it from a checkout")
     try:
@@ -3178,16 +3426,26 @@ def main() -> None:
     log("== 2. build")
     from tpufusion_torch.ops import _lib
 
+    floor_build = start_floor_build(_lib)
     secs = _lib.build()
+    floor_lib = finish_floor_build(*floor_build)
     log(f"  built {', '.join(_lib.SOURCES)} in {secs:.2f} s -> {_lib.BUILD_DIR}")
-    for source in ("styled_conv", "conv3x3"):
+    for source in _lib.SOURCES:
         for kernel, regs, spill in ptxas_summary(
                 (_lib.BUILD_DIR / f"{source}.ptxas.txt").read_text()):
             log(f"  {source}.cu {kernel}: {regs} registers, {spill} bytes spilled")
 
     log("== 3. kernels against their plain versions")
     records = []
-    check_kernels(torch, records)
+    floor = launch_floor(torch, floor_lib, card)
+    check_kernels(torch, records, floor)
+    out_dir = os.path.join(HERE, "runs", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    if kernels_only:
+        with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
+            json.dump(dict(card=card, floor=floor, records=records), f, indent=1)
+        log(card)
+        return
 
     log("== 4. small-input reference (card vs CPU)")
     check_small_reference(torch)
@@ -3287,10 +3545,9 @@ def main() -> None:
                                   "cli": (cli_launches, None),
                                   **{run: (c, None) for run, c in sh_launches.items()},
                                   **family_runs})
-    out_dir = os.path.join(HERE, "runs", "chip_smoke")
-    os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
-        json.dump(dict(card=card, records=records, kernels=kernels, main=main_numbers,
+        json.dump(dict(card=card, floor=floor, records=records, kernels=kernels,
+                       main=main_numbers,
                        profile=profile, whitebox_profile=wb_profile,
                        spatial_profile=sp_profile,
                        patch_profile=pa_profile, classifier_profile=cl_profile,

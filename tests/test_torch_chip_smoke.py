@@ -11,6 +11,7 @@ tensors, so they are checked here without a card.
 import importlib.util
 import math
 import os
+import types
 
 import pytest
 import torch
@@ -614,3 +615,81 @@ def test_cli_run_check_reads_the_family_folders(smoke, tmp_path, fam):
 def test_montage_size_of_fuse(smoke):
     assert smoke._montage_size(32) == (6 * 34 + 2, 36)
     assert smoke._montage_size(512) == (6 * 514 + 2, 516)
+
+
+STREAM_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN9tf_stream17stream_reg_kernelIfLi3ELi1EN12_GLOBAL__N_15PgdOpIfEELi2EEEvNS_7StreamsIT_XT0_EXT1_EEExNS_5SplitET2_' for 'sm_90a'
+ptxas info    : Used 40 registers, used 0 barriers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN9tf_stream17stream_reg_kernelI13__nv_bfloat16Li3ELi1EN12_GLOBAL__N_15PgdOpIS1_EELi1EEEvNS_7StreamsIT_XT0_EXT1_EEExNS_5SplitET2_' for 'sm_90a'
+ptxas info    : Used 30 registers, used 0 barriers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN9tf_stream17stream_reg_kernelIfLi4ELi3EN12_GLOBAL__N_16AdamOpELi1EEEvNS_7StreamsIT_XT0_EXT1_EEExNS_5SplitET2_' for 'sm_90a'
+ptxas info    : Used 37 registers, used 0 barriers, 440 bytes cmem[0]
+"""  # noqa: E501
+
+
+def test_ptxas_summary_names_the_stream_kernels(smoke):
+    """The pixel updates' kernels (namespace tf_stream) are read with their
+    element type and, for the register kernel, its vectors a thread."""
+    assert smoke.ptxas_summary(STREAM_PTXAS) == [
+        ("stream_reg_kernel<float, U=2>", 40, 0),
+        ("stream_reg_kernel<bf16, U=1>", 30, 0),
+        ("stream_reg_kernel<float, U=1>", 37, 0)]
+
+
+def test_profiler_groups_name_the_pixel_updates(smoke):
+    def group(key):
+        return next((g for pat, g in smoke.KERNEL_NAMES if pat in key), "other kernels")
+
+    assert group("void tf_stream::stream_reg_kernel<float, 3, 1, (anonymous namespace)::"
+                 "PgdOp<float>, 2>(...)") == "pgd_update"
+    assert group("void tf_stream::stream_reg_kernel<float, 4, 3, (anonymous namespace)::"
+                 "AdamOp, 1>(...)") == "fused_adam"
+
+
+@pytest.mark.parametrize("freed_gib, waits", [(13.0, True), (0.25, False)])
+def test_release_cache_waits_out_a_large_release(smoke, monkeypatch, freed_gib, waits):
+    """Before a graph timing the allocator's cache is given back, and a
+    release of more than ``SETTLE_BYTES`` is waited out for ``SETTLE_S``."""
+    reserved = [14 << 30]
+    calls, slept = [], []
+
+    def empty_cache():
+        calls.append("empty_cache")
+        reserved[0] -= int(freed_gib * (1 << 30))
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: calls.append("synchronize"),
+        memory_reserved=lambda: reserved[0], empty_cache=empty_cache))
+    monkeypatch.setattr(smoke.time, "sleep", slept.append)
+    smoke.release_cache(fake)
+    assert calls == ["synchronize", "empty_cache"]
+    assert slept == ([smoke.SETTLE_S] if waits else [])
+
+
+@pytest.mark.parametrize("shape, copies", [((3, 256, 256, 3), 20), ((2, 1024, 1024, 3), 4),
+                                           ((8, 1024, 1024, 3), 2)])
+def test_cold_ms_cycles_over_copies_far_apart(smoke, monkeypatch, shape, copies):
+    """``cold_ms`` captures its launches over enough copies of the buffers
+    that more than ``COLD_BYTES`` of the others pass between two uses of
+    one (at most one copy a launch), and times them through ``graph_ms``."""
+    seen = []
+    monkeypatch.setattr(smoke, "graph_ms", lambda torch_, fn, **k: [
+        fn() for _ in range(smoke.GRAPH_LAUNCHES + 1)] and [1.0, 2.0])
+    planes = [torch.empty(shape, device="meta") for _ in range(3)]
+    monkeypatch.setattr(torch.Tensor, "clone", lambda t: torch.empty(t.shape, device="meta"))
+    assert smoke.cold_ms(torch, lambda *t: seen.append(tuple(map(id, t))), planes) == [1.0, 2.0]
+    assert len(set(seen)) == copies
+    plane = 4 * math.prod(shape) * 3
+    assert (copies - 1) * plane >= smoke.COLD_BYTES or copies == smoke.GRAPH_LAUNCHES
+
+
+def test_numbers_carry_the_host_and_floor_readings(smoke):
+    """A kernel's entry sums the host us, the warm and time_ms readings over
+    the home path's timed shapes and carries the launch floor."""
+    extra = dict(host_us=10.0, event_ms=0.05, warm_ms=0.03, floor_ms=0.001, floor_host_us=4.0)
+    records = [dict(_record("pgd_update", "pgd", 0.04, dtype="float32"), **extra),
+               dict(_record("pgd_update", "pgd", 0.02, dtype="float32"), **extra)]
+    out = smoke._numbers(records, "pgd")
+    assert out["ms"] == pytest.approx(0.06) and out["host_us"] == pytest.approx(20.0)
+    assert out["event_ms"] == pytest.approx(0.1) and out["warm_ms"] == pytest.approx(0.06)
+    assert out["floor_ms"] == 0.001 and out["floor_host_us"] == 4.0
+    assert "graph_ms" not in out

@@ -176,9 +176,13 @@ def test_pgd_update_kernel(cuda, dtype, numel_shape):
     img = (adv.float() + 0.01).clamp(-1, 1).to(dtype)
     args = (adv, g, img, 0.02, 16 / 255, -1.0, 1.0)
     _close(pu.pgd_update_kernel(*args), pu.pgd_update_plain(*args), dtype, tol=0.0)
-    # an unaligned view takes the scalar path
+    # views off a 16-byte boundary: all by the same offset (a scalar head,
+    # then the body streams), and one alone (scalar throughout)
     flat = [t.reshape(-1)[1:] for t in (adv, g, img)]
     _close(pu.pgd_update_kernel(*flat, *args[3:]), pu.pgd_update_plain(*flat, *args[3:]),
+           dtype, tol=0.0)
+    mixed = [flat[0], g.reshape(-1)[:-1], flat[2]]
+    _close(pu.pgd_update_kernel(*mixed, *args[3:]), pu.pgd_update_plain(*mixed, *args[3:]),
            dtype, tol=0.0)
 
 
@@ -193,13 +197,16 @@ def test_fused_adam_kernel(cuda, shape, count):
     au.adam_update_kernel(*got, 1e-2, bc1, bc2)
     for a, b in zip((got[0], got[2], got[3]), want):
         _close(a, b, torch.float32, tol=0.0)
-    # views 4 bytes off 16-byte alignment take the scalar path
+    # views 4 bytes off 16-byte alignment (a scalar head, then the body
+    # streams), and g alone off (scalar throughout)
     off = [torch.empty(t.numel() + 1, device="cuda")[1:].copy_(t.reshape(-1))
            for t in (x, g, mu, nu)]
-    want = au.adam_update_plain(*[t.clone() for t in off], 1e-2, bc1, bc2)
-    au.adam_update_kernel(*off, 1e-2, bc1, bc2)
-    for a, b in zip((off[0], off[2], off[3]), want):
-        _close(a, b, torch.float32, tol=0.0)
+    for views in (off, [t.reshape(-1).clone() if i != 1 else o
+                        for i, (t, o) in enumerate(zip((x, g, mu, nu), off))]):
+        want = au.adam_update_plain(*[t.clone() for t in views], 1e-2, bc1, bc2)
+        au.adam_update_kernel(*views, 1e-2, bc1, bc2)
+        for a, b in zip((views[0], views[2], views[3]), want):
+            _close(a, b, torch.float32, tol=0.0)
 
 
 def test_fused_adam_counts_launches(cuda):

@@ -168,6 +168,15 @@ def test_wrappers_raise_off_cpu_when_library_is_missing(monkeypatch):
     with pytest.raises(RuntimeError, match="unavailable"):
         sc.styled_conv(x, _meta(3, 3, 32, 32), _meta(1, 32), _meta(1, 8, 8, 1),
                        _meta(), _meta(32))
+    # the pixel updates refuse a tensor off the card before they load
+    with pytest.raises(ValueError, match="contiguous CUDA tensor"):
+        pu.pgd_update(x, x, x, 0.1, 0.1)
+    with pytest.raises(ValueError, match="contiguous CUDA tensor"):
+        au.fused_adam(x, x, au.adam_init(x), 0.1)
+    # past those checks, a tensor off the CPU reaches the loader and raises
+    # with it: no fallback to the plain version
+    monkeypatch.setattr(pu, "_check_cuda", lambda name, t: None)
+    monkeypatch.setattr(au, "_check_cuda", lambda name, t: None)
     with pytest.raises(RuntimeError, match="unavailable"):
         pu.pgd_update(x, x, x, 0.1, 0.1)
     with pytest.raises(RuntimeError, match="unavailable"):
@@ -177,6 +186,17 @@ def test_wrappers_raise_off_cpu_when_library_is_missing(monkeypatch):
     assert c3.conv3x3(t, torch.zeros(3, 3, 32, 32)).shape == t.shape
     assert pu.pgd_update(t, t, t, 0.1, 0.1).shape == t.shape
     assert au.fused_adam(t, t, au.adam_init(t), 0.1)[0] is t
+
+
+def test_stream_handle_falls_back_to_the_public_call(monkeypatch):
+    """Where PyTorch lacks its private raw-stream binding, the launch helper
+    reads the same handle through ``torch.cuda.current_stream``."""
+    monkeypatch.setattr(_lib, "_raw_stream", None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda index: types.SimpleNamespace(cuda_stream=1234 + index))
+    assert _lib.current_stream_handle(1) == 1235
+    monkeypatch.setattr(_lib, "_raw_stream", lambda index: 7 + index)
+    assert _lib.current_stream_handle(1) == 8
 
 
 def test_fused_adam_kernel_takes_float32_only(monkeypatch):

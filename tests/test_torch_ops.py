@@ -24,6 +24,8 @@ from tpufusion.ops.upfirdn2d import (
     upsample_2x as j_up,
 )
 from tpufusion_torch import ops
+from tpufusion_torch.ops import _lib
+from tpufusion_torch.ops import adam_update as au
 from tpufusion_torch.ops import conv3x3 as c3
 from tpufusion_torch.ops import pgd_update as pu
 from tpufusion_torch.ops import styled_conv as sc
@@ -191,3 +193,74 @@ class TestPGDUpdate:
         pu.pgd_update(t, t, t, 0.1, 0.1)
         c3.conv3x3(torch.zeros(1, 4, 4, 32), torch.zeros(3, 3, 32, 32))
         assert set(ops.launch_counts().values()) == {0}
+
+
+def _planes(*shape, dtype=torch.float32, device="cpu"):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _strided(*shape):
+    """A view of ``shape`` that is not contiguous (channels moved last)."""
+    n, h, w, c = shape
+    return torch.zeros(n, c, h, w).permute(0, 2, 3, 1)
+
+
+# what each kernel wrapper refuses: (the arguments changed from matching CPU
+# planes, the exception, its message)
+PGD_REFUSED = {
+    "cpu": ({}, ValueError, "adv must be a contiguous CUDA tensor"),
+    "meta": ({k: _planes(2, 4, 4, 3, device="meta") for k in ("adv", "grad", "images")},
+             ValueError, "adv must be a contiguous CUDA tensor"),
+    "shape": ({"grad": _planes(2, 4, 4, 2)}, ValueError, "grad must match adv"),
+    "dtype": ({"images": _planes(2, 4, 4, 3, dtype=torch.bfloat16)}, ValueError,
+              "images must match adv"),
+    "non-contiguous": ({k: _strided(2, 4, 4, 3) for k in ("adv", "grad", "images")},
+                       ValueError, "adv must be a contiguous CUDA tensor"),
+}
+ADAM_REFUSED = {
+    "cpu": ({}, ValueError, "x must be a contiguous CUDA tensor"),
+    "meta": ({k: _planes(2, 4, 4, 3, device="meta") for k in ("x", "g", "mu", "nu")},
+             ValueError, "x must be a contiguous CUDA tensor"),
+    "shape": ({"mu": _planes(2, 4, 4, 2)}, ValueError, "mu must match x"),
+    "dtype": ({"g": _planes(2, 4, 4, 3, dtype=torch.bfloat16)}, TypeError,
+              "g must be float32"),
+    "non-contiguous": ({k: _strided(2, 4, 4, 3) for k in ("x", "g", "mu", "nu")},
+                       ValueError, "x must be a contiguous CUDA tensor"),
+}
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Records every call that would build or load a kernel library."""
+    calls = []
+    monkeypatch.setattr(_lib, "load", lambda name: calls.append(("load", name)))
+    monkeypatch.setattr(_lib, "build", lambda *a, **k: calls.append(("build", a)))
+    return calls
+
+
+@pytest.mark.parametrize("case", list(PGD_REFUSED))
+def test_pgd_kernel_refuses_before_any_build(no_build, case):
+    """``pgd_update_kernel`` raises on tensors off the card, mismatched
+    shapes or dtypes and non-contiguous inputs before it builds, loads or
+    launches anything."""
+    change, exc, msg = PGD_REFUSED[case]
+    planes = dict(adv=_planes(2, 4, 4, 3), grad=_planes(2, 4, 4, 3), images=_planes(2, 4, 4, 3))
+    with pytest.raises(exc, match=msg):
+        pu.pgd_update_kernel(**{**planes, **change}, alpha=0.02, eps=16 / 255)
+    assert no_build == []
+
+
+@pytest.mark.parametrize("case", list(ADAM_REFUSED))
+def test_adam_kernel_refuses_before_any_build(no_build, case):
+    """``adam_update_kernel`` raises on tensors off the card, a dtype other
+    than float32, mismatched shapes and non-contiguous inputs before it
+    builds, loads or launches anything; the buffers are left as they were."""
+    change, exc, msg = ADAM_REFUSED[case]
+    planes = {k: _planes(2, 4, 4, 3) for k in ("x", "g", "mu", "nu")}
+    args = {**planes, **change}
+    with pytest.raises(exc, match=msg):
+        au.adam_update_kernel(**args, lr=1e-2, bc1=0.1, bc2=0.001)
+    assert no_build == []
+    if case != "meta":
+        assert all(not t.any() for t in args.values())
+

@@ -17,11 +17,10 @@
 // Bound on an H100: purely memory -- 4 reads (x, g, mu, nu) and 3 writes
 // (x, mu, nu) of float32, 440.4 MB at (5, 1024, 1024, 3), about 0.131 ms at
 // 3.35 TB/s; about 12 operations per 28 bytes is far below the compute
-// rate. One grid-stride pass with 16-byte loads of all four buffers where
-// the pointers are aligned, and a masked scalar tail otherwise, so any size
-// is taken (the TPU kernel took only sizes divisible by 1024).
-#include <cuda_runtime.h>
-#include <stdint.h>
+// rate. The streaming design (evict-first 16-byte loads and stores, a
+// scalar head and tail, any size: the TPU kernel took only sizes divisible
+// by 1024) is in pixel_stream.cuh.
+#include "pixel_stream.cuh"
 
 namespace {
 
@@ -40,47 +39,26 @@ __device__ __forceinline__ void adam_one(float& x, float g, float& mu, float& nu
   x = __fsub_rn(x, __fmul_rn(lr, step));
 }
 
-__global__ void adam_kernel(float* __restrict__ x, const float* __restrict__ g,
-                            float* __restrict__ mu, float* __restrict__ nu, long long n,
-                            int vectorized, float lr, float bc1, float bc2) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long nvec = vectorized ? n / 4 : 0;
-  float4* x4 = reinterpret_cast<float4*>(x);
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  float4* m4 = reinterpret_cast<float4*>(mu);
-  float4* v4 = reinterpret_cast<float4*>(nu);
-  for (long long i = tid; i < nvec; i += stride) {
-    float4 xv = x4[i], mv = m4[i], vv = v4[i];
-    const float4 gv = g4[i];
-    adam_one(xv.x, gv.x, mv.x, vv.x, lr, bc1, bc2);
-    adam_one(xv.y, gv.y, mv.y, vv.y, lr, bc1, bc2);
-    adam_one(xv.z, gv.z, mv.z, vv.z, lr, bc1, bc2);
-    adam_one(xv.w, gv.w, mv.w, vv.w, lr, bc1, bc2);
-    x4[i] = xv;
-    m4[i] = mv;
-    v4[i] = vv;
+// streams: in = (x, g, mu, nu), out = (x, mu, nu), in place
+struct AdamOp {
+  float lr, bc1, bc2;
+  __device__ __forceinline__ void operator()(const float (&in)[4], float (&out)[3]) const {
+    float x = in[0], mu = in[2], nu = in[3];
+    adam_one(x, in[1], mu, nu, lr, bc1, bc2);
+    out[0] = x;
+    out[1] = mu;
+    out[2] = nu;
   }
-  for (long long i = nvec * 4 + tid; i < n; i += stride) {
-    float xs = x[i], ms = mu[i], vs = nu[i];
-    adam_one(xs, g[i], ms, vs, lr, bc1, bc2);
-    x[i] = xs;
-    mu[i] = ms;
-    nu[i] = vs;
-  }
-}
+};
 
 }  // namespace
 
 extern "C" int tf_adam_update(void* x, const void* g, void* mu, void* nu, long long n,
-                              int vectorized, float lr, float bc1, float bc2, void* stream) {
-  const int threads = 256;
-  const long long work = vectorized ? (n / 4 + n % 4) : n;
-  long long blocks = (work + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  if (blocks < 1) blocks = 1;
-  adam_kernel<<<(int)blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(x), static_cast<const float*>(g), static_cast<float*>(mu),
-      static_cast<float*>(nu), n, vectorized, lr, bc1, bc2);
-  return (int)cudaGetLastError();
+                              float lr, float bc1, float bc2, void* stream) {
+  float* xf = static_cast<float*>(x);
+  float* mf = static_cast<float*>(mu);
+  float* vf = static_cast<float*>(nu);
+  tf_stream::Streams<float, 4, 3> st{{xf, static_cast<const float*>(g), mf, vf}, {xf, mf, vf}};
+  // the waves grid at every size (pixel_stream.cuh)
+  return tf_stream::launch(st, n, AdamOp{lr, bc1, bc2}, 0, reinterpret_cast<cudaStream_t>(stream));
 }

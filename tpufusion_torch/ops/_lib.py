@@ -30,9 +30,8 @@ SIGNATURES = {
     "styled_conv": {"tf_styled_conv_fwd": [_P] * 7 + [_I] * 6 + [_P]},
     "conv3x3": {"tf_conv3x3_fwd": [_P] * 3 + [_I] * 5 + [_P],
                 "tf_conv3x3_wgrad": [_P] * 4 + [_I] * 6 + [_P]},
-    "pgd_update": {"tf_pgd_update": [_P] * 4 + [ctypes.c_longlong, _I, _I]
-                   + [_F] * 4 + [_P]},
-    "adam_update": {"tf_adam_update": [_P] * 4 + [ctypes.c_longlong, _I] + [_F] * 3 + [_P]},
+    "pgd_update": {"tf_pgd_update": [_P] * 4 + [ctypes.c_longlong, _I] + [_F] * 4 + [_P]},
+    "adam_update": {"tf_adam_update": [_P] * 4 + [ctypes.c_longlong] + [_F] * 3 + [_P]},
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -116,19 +115,35 @@ def aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
 
-def stream_ptr(t) -> int:
-    """PyTorch's current CUDA stream on ``t``'s device, for a launch."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+# PyTorch's raw handle of a device's current stream, without building a
+# ``Stream`` object. The binding is private, so where a build of PyTorch
+# lacks it the public ``torch.cuda.current_stream(index).cuda_stream`` (the
+# same handle) takes its place.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def current_stream_handle(index: int) -> int:
+    """The raw ``cudaStream_t`` of device ``index``'s current stream."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def launch(entry, t, what: str, *args) -> None:
-    """Call the C entry ``entry(*args, stream)`` with the CUDA runtime's
-    current device set to ``t``'s device, on that device's current stream,
-    and raise on its error. A C entry launches on the runtime's current
-    device, so without the guard a tensor on ``cuda:1`` in a process whose
-    current device is ``cuda:0`` would be launched on the wrong card."""
-    with torch.cuda.device(t.device):
-        rc = entry(*args, stream_ptr(t))
+    """Call the C entry ``entry(*args, stream)`` on the current stream of
+    ``t``'s device, with the CUDA runtime's current device set to it, and
+    raise on its error. A C entry launches on the runtime's current device,
+    so without the guard a tensor on ``cuda:1`` in a process whose current
+    device is ``cuda:0`` would be launched on the wrong card. The guard is
+    entered only when the devices differ, and the stream is read as a raw
+    handle (``current_stream_handle``): a launch costs a few microseconds
+    of host time, the length of a small plane's kernel."""
+    index = t.get_device()
+    if index == torch.cuda.current_device():
+        rc = entry(*args, current_stream_handle(index))
+    else:
+        with torch.cuda.device(index):
+            rc = entry(*args, current_stream_handle(index))
     check(rc, what)
 
 

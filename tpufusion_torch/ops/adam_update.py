@@ -15,8 +15,9 @@ differs by ulps).
 
 Kernel: ``csrc/adam_update.cu``, replacing the TPU kernel
 ``tpufusion/ops/adam_update.py::_pallas_adam`` (``_adam_kernel``). It is
-bound by the bytes it moves (four reads, three writes); one grid-stride pass
-with 16-byte loads is the whole design. ``x``, ``mu`` and ``nu`` are updated
+bound by the bytes it moves (four reads, three writes): 16-byte
+evict-first loads and stores, a block per 256 vectors
+(``csrc/pixel_stream.cuh``). ``x``, ``mu`` and ``nu`` are updated
 in place, as the TPU kernel aliases them. The TPU kernel's ``size % 1024``
 gate is gone: any size is taken.
 
@@ -61,22 +62,34 @@ def adam_update_plain(x, g, mu, nu, lr, bc1, bc2):
     return x, mu, nu
 
 
+def _check_like(name, t, x):
+    if t.dtype != torch.float32:
+        raise TypeError(f"fused_adam: {name} must be float32, got {t.dtype}")
+    if t.shape != x.shape or t.device != x.device:
+        raise ValueError(f"fused_adam: {name} must match x in shape and device, "
+                         f"got {tuple(t.shape)} {t.device}")
+
+
+def _check_cuda(name, t):
+    if not t.is_cuda or not t.is_contiguous():
+        raise ValueError(f"fused_adam: {name} must be a contiguous CUDA tensor")
+
+
 def adam_update_kernel(x, g, mu, nu, lr, bc1, bc2):
     """Launch the kernel on contiguous float32 CUDA tensors of one shape;
-    ``x``, ``mu`` and ``nu`` are written in place."""
+    ``x``, ``mu`` and ``nu`` are written in place. Every check raises
+    before the library is built or loaded."""
+    _check_like("x", x, x)
+    _check_like("g", g, x)
+    _check_like("mu", mu, x)
+    _check_like("nu", nu, x)
+    _check_cuda("x", x)
+    _check_cuda("g", g)
+    _check_cuda("mu", mu)
+    _check_cuda("nu", nu)
     fn = _lib.load("adam_update").tf_adam_update
-    for name, t in (("x", x), ("g", g), ("mu", mu), ("nu", nu)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"fused_adam: {name} must be float32, got {t.dtype}")
-        if t.shape != x.shape or t.device != x.device:
-            raise ValueError(f"fused_adam: {name} must match x in shape and device, "
-                             f"got {tuple(t.shape)} {t.device}")
-        if not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"fused_adam: {name} must be a contiguous CUDA tensor")
-    ptrs = (x.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr())
-    vectorized = int(all(p % 16 == 0 for p in ptrs))
-    _lib.launch(fn, x, "fused_adam", *ptrs, x.numel(), vectorized, float(lr), float(bc1),
-                float(bc2))
+    _lib.launch(fn, x, "fused_adam", x.data_ptr(), g.data_ptr(), mu.data_ptr(),
+                nu.data_ptr(), x.numel(), float(lr), float(bc1), float(bc2))
     return x, mu, nu
 
 
