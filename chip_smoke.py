@@ -9,7 +9,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: the CUDA sources under ``tpufusion_torch/csrc`` compile into
    ``build/tpufusion_torch`` (one nvcc per source, in parallel); the conv
-   kernels' registers and spills, from ptxas;
+   kernels' registers and spills, from ptxas, and any wgmma serialization
+   ptxas reports; the SASS gate (``cuobjdump -sass``): every bf16 forward
+   kernel (``conv3x3_wgmma_kernel``, each tile class) issues HGMMA and
+   UTMALDG and no HMMA;
 3. kernels against their plain PyTorch versions on the card, at the shapes
    of the main paths (fusion PGD, batch 1 synthesis; white-box, batch 5;
    spatial fusion: batch 1 in the attack, batch 6 in the partial-fusion
@@ -20,10 +23,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    4 x 512^2 c64, pgd_update and fused_adam on 4 x 512^2 x 3 and
    3 x 256^2 x 3),
    in float32 (TF32 off) and bfloat16, with times, and untimed at the
-   ragged tile edges of the bf16 tensor-core conv kernels; the weight grad
+   ragged tile and TMA-box edges of the bf16 forward (planes not a multiple
+   of the tile, 1-3 pixels a side, Cin 48, Cout 96, bf16 inputs 2 bytes off
+   a 16-byte boundary), each styled_conv and conv3x3 case launched twice and
+   held bit-equal; the weight grad
    also at tiny and ragged planes where the border is a large share of the
    sum, to its own 1e-3 limit, with two launches giving the same bits;
-   beside styled_conv, cuDNN's conv core (``conv_core_library_ms``);
+   the bf16 conv kernels (styled_conv, conv3x3 forward and input grad) are
+   timed by CUDA-graph replay, all device ms: the kernel alone (its launch
+   prepared first, ``*_launcher``) on a cold L2 (launches rotating over
+   copies of the input, each with its own packed weights) and warm; the
+   wrapper (weight packing, and styled_conv's scale, sigma and noise plane)
+   cold and warm (``graph_ms``, phase 3's reading before the Hopper
+   redesign), with its host us a call; the plain twin and the yardsticks
+   cold: cuDNN's conv core beside styled_conv (``conv_core_library_ms``),
+   ``F.conv2d`` / ``conv2d_input`` beside conv3x3; each record names its
+   tile class (``mma_class``);
    pgd_update and fused_adam are held bit-exact also on views 4 bytes off
    a 16-byte boundary (all streams, and one stream alone), and timed three
    ways at every timed shape: the device ms a launch with the card never
@@ -34,8 +49,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (``time.perf_counter`` over ``HOST_CALLS`` calls, no synchronize inside)
    and ``time_ms``'s reading (events around back-to-back calls, the host's
    time where a call is short), beside the launch floor: an empty kernel
-   timed the same ways; every timed conv kernel's host us a call and
-   its device ms by graph replay;
+   timed the same ways;
 3b. the weight grad through the real call chain: ``styled_conv`` with a
    weight that requires grad at the two tail shapes (batch 1 and 5, bf16)
    against autograd through ``styled_conv_plain``, then one full-width
@@ -380,12 +394,23 @@ STYLED_BATCHES = {1: "pgd", 2: None, 5: "whitebox", 6: "spatial"}
 FAMILY_STYLED = {"car": (4, 512), "church": (3, 256)}
 CONV_SHAPES = {(1, 1024, 32): "pgd", (1, 512, 64): "pgd", (2, 512, 64): None,
                (5, 1024, 32): "whitebox", (5, 512, 64): "whitebox", (4, 512, 64): "car"}
-# ragged edges of the bf16 tensor-core kernel's tiles, checked untimed:
-# styled_conv (n, h, w, cin, cout) -- partial M tiles of the wide and mid
-# classes, a partial K chunk with Cout 96 in the small class; conv3x3
-# (n, h, w, c) -- partial M tiles of the resident-weight class
-STYLED_RAGGED = [(3, 70, 90, 128, 256), (4, 30, 20, 48, 192), (3, 3, 37, 48, 96)]
-CONV_RAGGED = [(2, 37, 53, 64), (1, 33, 70, 32)]
+# ragged edges of the bf16 forward's tiles and TMA boxes, checked untimed
+# (ops/conv3x3.py::mma_class names each case's class; the tests hold that
+# these lists reach every class and edge): styled_conv (n, h, w, cin, cout)
+# -- planes not a multiple of the tile in H and W, H or W of 1-3 (the box
+# mostly outside the tensor), Cin 48 (a partial channel chunk: 32 + 16 in
+# Narrow32's two resident chunks, 48 of Narrow64's 64, Mid's and Small's
+# 32 + 16), Cout 96 (three Small slices), a plane whose tiles leave the
+# last blocks' second warpgroup one tile short; conv3x3 (n, h, w, c) --
+# partial tiles of both Narrow classes, planes of 1-3 pixels a side
+STYLED_RAGGED = [(3, 70, 90, 128, 256), (4, 30, 20, 48, 192), (3, 3, 37, 48, 96),
+                 (1, 1, 1, 32, 32), (2, 2, 3, 48, 64), (3, 19, 35, 32, 32), (1, 33, 17, 48, 32),
+                 (2, 13, 21, 64, 64), (2, 5, 9, 512, 512), (30, 50, 2, 128, 128),
+                 (2, 30, 50, 128, 192), (5, 3, 1, 512, 512), (3, 200, 190, 32, 32)]
+CONV_RAGGED = [(2, 37, 53, 64), (1, 33, 70, 32), (3, 1, 2, 32), (2, 3, 1, 64), (1, 130, 257, 64)]
+# bf16 inputs 2 bytes past a 16-byte boundary (the wrappers copy them to an
+# aligned buffer for the TMA): styled_conv and conv3x3 cases of the lists above
+VIEW_OFF = {"styled": (3, 19, 35, 32, 32), "conv": (2, 37, 53, 64)}
 # weight grad only, untimed: planes where the zero border and the partial
 # tiles are a large share of the sum (a single pixel: 8 of 9 taps read only
 # padding; a plane narrower than a k-step; one row and column past a tile)
@@ -459,6 +484,50 @@ def pixel_timings(torch, call, tensors, bound):
                 bound_share=bound / statistics.median(cold))
 
 
+def cold_launch_ms(torch, make, x, out_bytes):
+    """Device ms of a prepared kernel launch on a cold L2, as a step finds
+    its activations and weights: ``make(x_copy)`` prepares one launch (its
+    weights packed anew, so they are cold too) for each of as many copies
+    of ``x`` as ``cold_ms`` would rotate over, and the launches rotate
+    inside one CUDA graph. Sorted, one a replay."""
+    set_bytes = x.numel() * x.element_size() + out_bytes
+    copies = max(2, min(GRAPH_LAUNCHES, -(-COLD_BYTES // set_bytes) + 1))
+    launches = [make(x)] + [make(x.clone()) for _ in range(copies - 1)]
+    turn = [0]
+
+    def rotating():
+        turn[0] += 1
+        return launches[turn[0] % copies]()
+    ms = graph_ms(torch, rotating)
+    del launches
+    return ms
+
+
+def conv_timings(torch, launcher, wrapper, plain, tensors, out_bytes, library=None, core=None):
+    """A bf16 conv kernel's readings, device ms by CUDA-graph replay: the
+    kernel alone (``launcher(*tensors)`` prepares its launch; that is the
+    record's ms) on a cold L2 and warm; the wrapper, whose preparation (the
+    weights' packing; styled_conv's scale, sigma and noise plane) the main
+    path pays at every call, cold and warm (``graph_ms``, phase 3's reading
+    before these kernels) and its host us a call; the plain twin and the
+    yardsticks (``library`` / ``core``: a function and its tensors) cold.
+    Every cold reading rotates over copies of all its inputs."""
+    x, rest = tensors[0], tensors[1:]
+    kernel = cold_launch_ms(torch, lambda xc: launcher(xc, *rest), x, out_bytes)
+    warm = graph_ms(torch, launcher(*tensors))
+    host = host_us(torch, lambda: wrapper(*tensors))
+    out = dict(ms=statistics.median(kernel), ms_range=[kernel[0], kernel[-1]],
+               warm_ms=statistics.median(warm),
+               wrapper_ms=statistics.median(cold_ms(torch, wrapper, list(tensors))),
+               graph_ms=statistics.median(graph_ms(torch, lambda: wrapper(*tensors))),
+               host_us=statistics.median(host), host_us_range=[host[0], host[-1]],
+               plain_ms=statistics.median(cold_ms(torch, plain, list(tensors))))
+    for key, yardstick in (("library_ms", library), ("conv_core_library_ms", core)):
+        if yardstick is not None:
+            out[key] = statistics.median(cold_ms(torch, *yardstick))
+    return out
+
+
 def check_kernels(torch, records, floor=None):
     """Every kernel against its plain twin; the records of every case go to
     ``records``. ``floor`` (``launch_floor``'s numbers) goes into each
@@ -478,16 +547,22 @@ def check_kernels(torch, records, floor=None):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def record(kernel, case, dtype, err, rel, ms=None, plain=None, lib=None, nbytes=0,
-               ops=0, path=None, core=None, fn=None, pixel=None):
+               ops=0, path=None, core=None, fn=None, pixel=None, conv=None, extra_fields=None):
         """``fn``: the kernel's call, for its host us; ``pixel``: a pixel
-        update's ``pixel_timings``, whose device ms is the record's ms."""
+        update's ``pixel_timings``, whose device ms is the record's ms;
+        ``conv``: a bf16 conv kernel's ``conv_timings`` (its ms, plain,
+        library and conv-core ms too)."""
         tol = 0.0 if kernel in EXACT else KERNEL_TOL.get((kernel, dtype), TOL[dtype])
         ok = _within(err, rel, tol)
         b, by = bound_ms(nbytes, ops, dtype) if nbytes else (None, None)
-        extra = {}
+        extra = dict(extra_fields or {})
         if pixel is not None:
             extra = {**pixel, **(floor or {})}
             ms = extra.pop("ms")
+        elif conv is not None:
+            extra.update(conv)
+            ms, plain = extra.pop("ms"), extra.pop("plain_ms")
+            lib, core = extra.pop("library_ms", None), extra.pop("conv_core_library_ms", None)
         elif fn is not None and ms is not None:
             host = host_us(torch, fn)
             dev = graph_ms(torch, fn)
@@ -504,7 +579,13 @@ def check_kernels(torch, records, floor=None):
             + (f" library {lib:.4f} ms" if lib is not None else "")
             + (f" conv core (cuDNN) {core:.4f} ms" if core is not None else "")
             + (f" host {extra['host_us']:.2f} us a call, device {extra['graph_ms']:.4f} ms "
-               "(graph)" if fn is not None and extra else ""))
+               "(graph)" if fn is not None and "graph_ms" in extra and conv is None else ""))
+        if conv is not None:
+            log(f"    kernel alone: {ms:.4f} ms cold ({extra['ms_range'][0]:.4f}-"
+                f"{extra['ms_range'][1]:.4f}), {extra['warm_ms']:.4f} warm, {b / ms:.1%} of the "
+                f"bound; wrapper {extra['wrapper_ms']:.4f} cold, {extra['graph_ms']:.4f} warm, "
+                f"host {extra['host_us']:.2f} us a call; {extra.get('mma_class', '')} "
+                f"[graph replay]")
         if pixel is not None:
             rng, hr, wr = extra["graph_ms_range"], extra["host_us_range"], extra["warm_ms_range"]
             log(f"    device {ms:.4f} ms a launch on a cold L2 ({rng[0]:.4f}-{rng[1]:.4f}, graph "
@@ -557,19 +638,34 @@ def check_kernels(torch, records, floor=None):
             ns = torch.tensor(0.1, device=dev)
             b = rn(cout, dtype=torch.float32) * 0.1
             args = (x, w, s, noise, ns, b)
-            y = sc.styled_conv_kernel(*args)
-            torch.cuda.synchronize()
-            err, rel = _err(torch, y, sc.styled_conv_plain(*args))
             timed = dtype_name == "bfloat16" and path is not None
-            ms = time_ms(torch, lambda: sc.styled_conv_kernel(*args)) if timed else None
-            plain = time_ms(torch, lambda: sc.styled_conv_plain(*args)) if timed else None
             case = f"n{n} {h}^2 c{cin}" if (h, cin) == (wd, cout) else \
                 f"n{n} {h}x{wd} c{cin}->{cout}"
-            record("styled_conv", case, dtype_name, err, rel, ms, plain,
-                   nbytes=n * h * wd * (cin + cout) * isz + 9 * cin * cout * isz,
-                   ops=2 * 9 * cin * cout * n * h * wd, path=path,
-                   core=_conv_core_ms(torch, *args) if timed else None,
-                   fn=lambda: sc.styled_conv_kernel(*args))
+            views = [("", x)]
+            if dtype_name == "bfloat16" and (n, h, wd, cin, cout) == VIEW_OFF["styled"]:
+                views.append((" view 2 B off", offset_copy(torch, x, 2)))
+            for suffix, xv in views:
+                args = (xv, *args[1:])
+                y = sc.styled_conv_kernel(*args)
+                again = sc.styled_conv_kernel(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(y, again):
+                    failures.append(f"styled_conv {case}{suffix} {dtype_name}: two launches "
+                                    "on the same inputs differ")
+                err, rel = _err(torch, y, sc.styled_conv_plain(*args))
+                cls = c3.mma_class(n, h, wd, cin, cout).name if dtype_name == "bfloat16" else None
+                conv = None
+                if timed and not suffix:
+                    xs = (x * s.to(x.dtype)[:, None, None, :]).permute(0, 3, 1, 2)
+                    wn = (w / math.sqrt(9 * cin)).to(x.dtype).permute(3, 2, 0, 1).contiguous(
+                        memory_format=torch.channels_last)
+                    conv = conv_timings(torch, sc.styled_conv_launcher, sc.styled_conv_kernel,
+                                        sc.styled_conv_plain, args, n * h * wd * cout * isz,
+                                        core=_conv_core(torch, xs, wn))
+                record("styled_conv", case + suffix, dtype_name, err, rel,
+                       nbytes=n * h * wd * (cin + cout) * isz + 9 * cin * cout * isz,
+                       ops=2 * 9 * cin * cout * n * h * wd, path=path if conv else None,
+                       conv=conv, extra_fields={"mma_class": cls} if cls else None)
         # low-channel conv: forward, input grad, weight grad; then the
         # ragged edges (untimed)
         conv_cases = [(n, res, res, ch, path) for (n, res, ch), path in CONV_SHAPES.items()]
@@ -582,31 +678,34 @@ def check_kernels(torch, records, floor=None):
             act = n * h * wd * ch * isz
             ops = 2 * 9 * ch * ch * n * h * wd
             case = f"n{n} {h}^2 c{ch}" if h == wd else f"n{n} {h}x{wd} c{ch}"
-            xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            cls = c3.mma_class(n, h, wd, ch, ch).name if dtype_name == "bfloat16" else None
             wn = w.permute(3, 2, 0, 1).contiguous()
-
-            y = c3.conv3x3_forward_kernel(x, w)
-            torch.cuda.synchronize()
-            err, rel = _err(torch, y, c3.conv3x3_plain(x, w))
-            record("conv3x3_fwd", case, dtype_name, err, rel,
-                   *((time_ms(torch, lambda: c3.conv3x3_forward_kernel(x, w)),
-                      time_ms(torch, lambda: c3.conv3x3_plain(x, w)),
-                      time_ms(torch, lambda: torch.nn.functional.conv2d(xn, wn, padding=1)))
-                     if timed else (None, None, None)),
-                   nbytes=2 * act + 9 * ch * ch * isz, ops=ops, path=path,
-                   fn=lambda: c3.conv3x3_forward_kernel(x, w))
-
-            dx = c3.conv3x3_input_grad_kernel(g, w)
-            torch.cuda.synchronize()
-            err, rel = _err(torch, dx, c3.conv3x3_input_grad_plain(g, w))
-            record("conv3x3_dgrad", case, dtype_name, err, rel,
-                   *((time_ms(torch, lambda: c3.conv3x3_input_grad_kernel(g, w)),
-                      time_ms(torch, lambda: c3.conv3x3_input_grad_plain(g, w)),
-                      time_ms(torch, lambda: torch.nn.grad.conv2d_input(
-                          xn.shape, wn, gn, padding=1)))
-                     if timed else (None, None, None)),
-                   nbytes=2 * act + 9 * ch * ch * isz, ops=ops, path=path,
-                   fn=lambda: c3.conv3x3_input_grad_kernel(g, w))
+            views = [("", x, g)]
+            if dtype_name == "bfloat16" and (n, h, wd, ch) == VIEW_OFF["conv"]:
+                views.append((" view 2 B off", offset_copy(torch, x, 2), offset_copy(torch, g, 2)))
+            for suffix, xv, gv in views:
+                for kernel, wrapper, launcher, plain, inp, lib in (
+                        ("conv3x3_fwd", c3.conv3x3_forward_kernel, c3.conv3x3_forward_launcher,
+                         c3.conv3x3_plain, xv,
+                         (lambda a, k: torch.nn.functional.conv2d(a, k, padding=1),
+                          [xv.permute(0, 3, 1, 2), wn])),
+                        ("conv3x3_dgrad", c3.conv3x3_input_grad_kernel,
+                         c3.conv3x3_input_grad_launcher, c3.conv3x3_input_grad_plain, gv,
+                         (lambda a, k: torch.nn.grad.conv2d_input((n, ch, h, wd), k, a, padding=1),
+                          [gv.permute(0, 3, 1, 2), wn]))):
+                    y = wrapper(inp, w)
+                    again = wrapper(inp, w)
+                    torch.cuda.synchronize()
+                    if not torch.equal(y, again):
+                        failures.append(f"{kernel} {case}{suffix} {dtype_name}: two launches on "
+                                        "the same inputs differ")
+                    err, rel = _err(torch, y, plain(inp, w))
+                    conv = (conv_timings(torch, launcher, wrapper, plain, (inp, w), act,
+                                         library=lib) if timed and not suffix else None)
+                    record(kernel, case + suffix, dtype_name, err, rel,
+                           nbytes=2 * act + 9 * ch * ch * isz, ops=ops,
+                           path=path if conv else None, conv=conv,
+                           extra_fields={"mma_class": cls} if cls else None)
 
             check_wgrad(x, g, case, timed, path)
         for n, h, wd, ch in WGRAD_RAGGED:
@@ -667,16 +766,13 @@ def check_kernels(torch, records, floor=None):
         fail("kernel disagrees with its plain version: " + "; ".join(failures))
 
 
-def _conv_core_ms(torch, x, weight, style, *_):
+def _conv_core(torch, xs, wn):
     """The cuDNN yardstick for styled_conv's conv core: ``F.conv2d`` of the
-    modulated input (bf16, channels-last) with the scaled weights, without
-    the demodulation / noise / bias / activation epilogue, so it is kept
-    apart from ``library_ms`` (timed only; the port never calls it)."""
-    cin = x.shape[-1]
-    xs = (x * style.to(x.dtype)[:, None, None, :]).permute(0, 3, 1, 2)
-    wn = (weight / math.sqrt(9 * cin)).to(x.dtype).permute(3, 2, 0, 1).contiguous(
-        memory_format=torch.channels_last)
-    return time_ms(torch, lambda: torch.nn.functional.conv2d(xs, wn, padding=1))
+    modulated input ``xs`` (bf16, channels-last) with the scaled weights
+    ``wn``, without the demodulation / noise / bias / activation epilogue,
+    so it is kept apart from ``library_ms`` (timed only; the port never
+    calls it): the function and its tensors, for ``cold_ms``."""
+    return (lambda a, k: torch.nn.functional.conv2d(a, k, padding=1), [xs, wn])
 
 
 def _torch_adam_ms(torch, x, g):
@@ -714,7 +810,7 @@ def _numbers(rs, path="pgd"):
         # the host us a call, and a pixel update's time_ms reading and
         # launch floor, summed over the same shapes
         **{key: sum(r[key] for r in timed) for key in ("host_us", "event_ms", "warm_ms",
-                                                       "graph_ms")
+                                                       "graph_ms", "wrapper_ms")
            if all(key in r for r in timed)},
         **{key: timed[0][key] for key in ("floor_ms", "floor_host_us") if key in timed[0]},
         "shapes_timed": [f"{r['case']} {r['dtype']}" for r in timed],
@@ -3285,8 +3381,8 @@ def time_blender(torch, card, pipe, reps=5):
 # substrings of the profiler's kernel names -> phase 6/6b's groups (the first
 # that matches); the styled and plain instantiations of the shared conv
 # kernels, and their fp32 (CUDA cores) and bf16 (tensor cores) routes, apart
-KERNEL_NAMES = (("conv3x3_mma_kernel<true", "styled_conv bf16"),
-                ("conv3x3_mma_kernel<false", "conv3x3_fwd/dgrad bf16"),
+KERNEL_NAMES = (("conv3x3_wgmma_kernel<true", "styled_conv bf16"),
+                ("conv3x3_wgmma_kernel<false", "conv3x3_fwd/dgrad bf16"),
                 ("conv3x3_fwd_kernel<float, true>", "styled_conv fp32"),
                 ("conv3x3_fwd_kernel<float, false>", "conv3x3_fwd/dgrad fp32"),
                 ("conv3x3_wgrad_mma_kernel", "conv3x3_wgrad bf16"),
@@ -3372,14 +3468,14 @@ def profile_step(torch, run, *, step_ms, what):
 def ptxas_summary(text: str):
     """``(kernel, registers, spilled bytes)`` for each entry function in
     nvcc's ``-Xptxas=-v`` output; a tensor-core kernel's tile class is
-    shown by its ``MmaTile`` / ``WgradTile`` arguments."""
+    shown by its ``WgTile`` / ``WgradTile`` arguments."""
     rows, name, spill = [], None, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '_ZN(?:2tf|9tf_stream)(\d+)(\w+)'", line)
         if m:
             n = int(m.group(1))
             name, rest = m.group(2)[:n], m.group(2)[n:]
-            tile = re.search(r"(MmaTile|WgradTile)I((?:L[ib]\d+E)+)", rest)
+            tile = re.search(r"(WgTile|WgradTile)I((?:L[ib]\d+E)+)", rest)
             if tile:
                 args = ", ".join(re.findall(r"L[ib](\d+)E", tile.group(2)))
                 kind = "" if tile.group(1) == "WgradTile" else \
@@ -3398,6 +3494,53 @@ def ptxas_summary(text: str):
             rows.append((name, int(m.group(1)), spill))
             name = None
     return rows
+
+
+# The bf16 forward kernels' SASS: Hopper's warpgroup MMA (HGMMA) and tensor
+# copies (UTMALDG) on every tile class, and no mma.sync (HMMA) left
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
+
+
+def sass_counts(text: str):
+    """``{kernel: {op: count}}`` of the bf16 forward kernels
+    (``conv3x3_wgmma_kernel``, by mangled name) in ``cuobjdump -sass``
+    output, counting the ``SASS_OPS`` instructions."""
+    out = {}
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "conv3x3_wgmma_kernel" in name:
+            out[name] = {op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPS}
+    return out
+
+
+def sass_failures(counts):
+    """What the forward kernels' SASS lacks: each must issue HGMMA and
+    UTMALDG and no HMMA."""
+    if not counts:
+        return ["no conv3x3_wgmma_kernel in the SASS"]
+    return [f"{name}: {c}" for name, c in counts.items()
+            if c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] != 0]
+
+
+def check_sass(_lib):
+    """Phase 2's SASS gate on the styled_conv and conv3x3 libraries
+    (``cuobjdump`` beside ``nvcc``)."""
+    cuobjdump = os.path.join(os.path.dirname(_lib.nvcc_path()), "cuobjdump")
+    failures = []
+    for source in ("styled_conv", "conv3x3"):
+        out = subprocess.run([cuobjdump, "-sass", str(_lib.BUILD_DIR / f"lib{source}.so")],
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f"cuobjdump -sass lib{source}.so failed: {out.stderr.strip()}")
+        counts = sass_counts(out.stdout)
+        for name, c in counts.items():
+            tile = re.search(r"WgTileI((?:L[ib]\d+E)+)", name)
+            args = ", ".join(re.findall(r"L[ib](\d+)E", tile.group(1))) if tile else "?"
+            log(f"  {source}.cu conv3x3_wgmma_kernel<WgTile<{args}>> SASS: "
+                + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
+        failures += [f"lib{source}.so {f}" for f in sass_failures(counts)]
+    if failures:
+        fail("bf16 forward SASS without wgmma / TMA, or with mma.sync: " + "; ".join(failures))
 
 
 def main(argv=None) -> None:
@@ -3434,6 +3577,10 @@ def main(argv=None) -> None:
         for kernel, regs, spill in ptxas_summary(
                 (_lib.BUILD_DIR / f"{source}.ptxas.txt").read_text()):
             log(f"  {source}.cu {kernel}: {regs} registers, {spill} bytes spilled")
+        for line in (_lib.BUILD_DIR / f"{source}.ptxas.txt").read_text().splitlines():
+            if "wgmma.mma_async instructions are serialized" in line:
+                log(f"  {source}.cu ptxas: {line.strip()[:200]}")
+    check_sass(_lib)
 
     log("== 3. kernels against their plain versions")
     records = []

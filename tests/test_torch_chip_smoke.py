@@ -54,9 +54,9 @@ ptxas info    : Used 235 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN2tf20conv3x3_wgrad_kernelIfEEvPKT_S3_Pfiiii' for 'sm_90a'
     16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 95 registers, used 1 barriers, 42496 bytes smem
-ptxas info    : Compiling entry function '_ZN2tf18conv3x3_mma_kernelILb1ENS_7MmaTileILi16ELi16ELi32ELi32ELi8ELi1ELi2ELb1EEEEEvPK13__nv_bfloat16S5_PS3_PKfS8_S8_S8_iiiii' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN2tf20conv3x3_wgmma_kernelILb1ENS_6WgTileILi16ELi16ELi2ELi1ELi4ELi32ELi32ELi8ELb1ELi1EEEEEv14CUtensorMap_stPK13__nv_bfloat16PS4_PKfS9_S9_S9_iiiii' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 125 registers, used 1 barriers
+ptxas info    : Used 168 registers, used 1 barriers
 """
 
 
@@ -64,7 +64,32 @@ def test_ptxas_summary_names_the_tile_classes(smoke):
     assert smoke.ptxas_summary(PTXAS) == [
         ("conv3x3_wgrad_mma_kernel<WgradTile<64, 8, 32, 8, 2>>", 235, 0),
         ("conv3x3_wgrad_kernel<float>", 95, 20),
-        ("conv3x3_mma_kernel<styled, MmaTile<16, 16, 32, 32, 8, 1, 2, 1>>", 125, 0)]
+        ("conv3x3_wgmma_kernel<styled, WgTile<16, 16, 2, 1, 4, 32, 32, 8, 1, 1>>", 168, 0)]
+
+
+SASS = """\
+        code for sm_90a
+                Function : _ZN2tf20conv3x3_wgmma_kernelILb1ENS_6WgTileILi8ELi8ELi1ELi1ELi1ELi32ELi32ELi4ELb0ELi2EEEEEv14CUtensorMap_st
+        /*0a10*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0a20*/                   UBLKCP.S.G [UR8], [UR10], UR12 ;
+        /*1d40*/                   HGMMA.64x32x16.F32.BF16 R56, R88, gdesc[UR4], R56 ;
+                Function : _ZN2tf24conv3x3_wgrad_mma_kernelINS_9WgradTileILi64ELi8ELi32ELi8ELi2EEEEEvPK13__nv_bfloat16S5_Pfiii
+        /*0200*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+
+def test_sass_gate_reads_the_forward_kernels(smoke):
+    """Phase 2's SASS gate counts HGMMA, UTMALDG and HMMA in the bf16
+    forward kernels only (the weight grad stays on mma.sync), and fails one
+    without wgmma or TMA, or with mma.sync."""
+    counts = smoke.sass_counts(SASS)
+    assert list(counts.values()) == [{"HGMMA": 1, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 0}]
+    assert smoke.sass_failures(counts) == []
+    name = next(iter(counts))
+    assert smoke.sass_failures({name: {"HGMMA": 0, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 0}})
+    assert smoke.sass_failures({name: {"HGMMA": 4, "UTMALDG": 0, "UBLKCP": 1, "HMMA": 0}})
+    assert smoke.sass_failures({name: {"HGMMA": 4, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 2}})
+    assert smoke.sass_failures({}) == ["no conv3x3_wgmma_kernel in the SASS"]
 
 
 def test_profiler_groups_keep_the_weight_grad_kernels_apart(smoke):
@@ -77,8 +102,10 @@ def test_profiler_groups_keep_the_weight_grad_kernels_apart(smoke):
         "conv3x3_wgrad fp32"
     assert group("tf::sum_partials_kernel(float const*, float*, int, int)") == \
         "conv3x3_wgrad second pass"
-    assert group("void tf::conv3x3_mma_kernel<false, tf::MmaTile<16, 16, 32, 32, 8, 1, 2, "
-                 "true> >(...)") == "conv3x3_fwd/dgrad bf16"
+    assert group("void tf::conv3x3_wgmma_kernel<false, tf::WgTile<16, 16, 2, 1, 4, 32, 32, "
+                 "8, true, 1> >(...)") == "conv3x3_fwd/dgrad bf16"
+    assert group("void tf::conv3x3_wgmma_kernel<true, tf::WgTile<8, 8, 1, 1, 1, 32, 32, 4, "
+                 "false, 2> >(...)") == "styled_conv bf16"
     assert smoke.KERNEL_TOL[("conv3x3_wgrad", "bfloat16")] <= 1e-3 < smoke.TOL["bfloat16"]
 
 

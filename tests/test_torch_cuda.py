@@ -56,19 +56,40 @@ def _styled_args(gen, dtype, n, h, w, cin, cout):
             rn(1, h, w, 1), torch.tensor(0.2, device="cuda"), rn(cout) * 0.1)
 
 
-# the bf16 kernel's tile classes and their ragged edges: Narrow (Cout 32/64,
-# resident weights), Wide and Mid (Cout % 128 / % 64 with enough blocks),
-# Small (the rest); Cin 48 leaves a partial K chunk, Cout 96 a partial N
-# tile of the wider classes, 3 x 37, 70 x 90 and 30 x 20 partial M tiles,
-# batch 3 at 4^2 many tiles of a few pixels
+# the bf16 kernel's tile classes (ops/conv3x3.py::mma_class) and the edges
+# of their tiles and TMA boxes: Narrow32 / Narrow64 (Cout 32/64, resident
+# weights), Wide and Mid (Cout % 128 / % 64 with enough blocks), Small (the
+# rest); Cin 48 leaves a partial channel chunk (two resident chunks of
+# Narrow32, 48 of Narrow64's 64), Cout 96 three Small slices, 3 x 37,
+# 70 x 90, 30 x 20, 5 x 9 planes partial tiles, planes of 1-3 pixels a side
+# boxes mostly outside the tensor, batch 3 at 4^2 many tiles of a few
+# pixels; two launches give the same bits
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,cin,cout", [
     (1, 4, 4, 512, 512), (2, 13, 13, 64, 32), (2, 40, 40, 32, 64), (2, 16, 16, 48, 64),
     (2, 16, 16, 32, 96), (1, 3, 37, 64, 64), (3, 4, 4, 512, 512), (3, 70, 90, 128, 256),
-    (1, 9, 21, 48, 128), (4, 30, 20, 48, 192)])
+    (1, 9, 21, 48, 128), (4, 30, 20, 48, 192), (1, 1, 1, 32, 32), (2, 2, 3, 48, 64),
+    (1, 33, 17, 48, 32), (2, 5, 9, 512, 512), (30, 50, 2, 128, 128), (5, 3, 1, 512, 512)])
 def test_styled_conv_kernel(cuda, dtype, n, h, w, cin, cout):
     args = _styled_args(cuda, dtype, n, h, w, cin, cout)
-    _close(sc.styled_conv_kernel(*args), sc.styled_conv_plain(*args), dtype)
+    y = sc.styled_conv_kernel(*args)
+    _close(y, sc.styled_conv_plain(*args), dtype)
+    assert torch.equal(y, sc.styled_conv_kernel(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_styled_conv_kernel_takes_a_permuted_weight(cuda, dtype):
+    """A module keeps its weight in its own layout: an HWIO view of an OIHW
+    tensor (not contiguous) is read as HWIO. (sigma's float32 sum over the
+    taps runs in the view's order, so its last bits may differ from the
+    contiguous weight's: the two outputs agree to the tolerance.)"""
+    x, w, s, noise, ns, b = _styled_args(cuda, dtype, 2, 12, 10, 64, 32)
+    w_view = w.permute(3, 2, 0, 1).contiguous().permute(2, 3, 1, 0)
+    assert not w_view.is_contiguous() and torch.equal(w_view, w)
+    y = sc.styled_conv_kernel(x, w_view, s, noise, ns, b)
+    _close(y, sc.styled_conv_plain(x, w, s, noise, ns, b), dtype)
+    _close(y, sc.styled_conv_kernel(x, w, s, noise, ns, b), dtype)
+    assert torch.equal(y, sc.styled_conv_kernel(x, w_view, s, noise, ns, b))
 
 
 def test_styled_conv_bf16_autograd(cuda):
@@ -88,14 +109,21 @@ def test_styled_conv_bf16_autograd(cuda):
         _close(got, want, torch.bfloat16)
 
 
+# partial tiles of both Narrow classes and planes of 1-3 pixels a side;
+# two launches give the same bits
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,h,w,c", [(1, 33, 70, 32), (2, 16, 9, 64)])
+@pytest.mark.parametrize("n,h,w,c", [(1, 33, 70, 32), (2, 16, 9, 64), (3, 1, 2, 32),
+                                     (2, 3, 1, 64), (1, 130, 257, 64)])
 def test_conv3x3_kernels(cuda, dtype, n, h, w, c):
     rn = lambda *s: torch.randn(s, generator=cuda, device="cuda").to(dtype)  # noqa: E731
     x, g = rn(n, h, w, c), rn(n, h, w, c)
     wt = (rn(3, 3, c, c).float() / math.sqrt(9 * c)).to(dtype)
-    _close(c3.conv3x3_forward_kernel(x, wt), c3.conv3x3_plain(x, wt), dtype)
-    _close(c3.conv3x3_input_grad_kernel(g, wt), c3.conv3x3_input_grad_plain(g, wt), dtype)
+    y = c3.conv3x3_forward_kernel(x, wt)
+    _close(y, c3.conv3x3_plain(x, wt), dtype)
+    assert torch.equal(y, c3.conv3x3_forward_kernel(x, wt))
+    dx = c3.conv3x3_input_grad_kernel(g, wt)
+    _close(dx, c3.conv3x3_input_grad_plain(g, wt), dtype)
+    assert torch.equal(dx, c3.conv3x3_input_grad_kernel(g, wt))
     _close(c3.conv3x3_weight_grad_kernel(x, g), c3.conv3x3_weight_grad_plain(x, g), dtype,
            tol=WGRAD_TOL[dtype])
 

@@ -163,18 +163,24 @@ def test_wrappers_raise_off_cpu_when_library_is_missing(monkeypatch):
 
     monkeypatch.setattr(_lib, "load", missing)
     x = _meta(1, 8, 8, 32)
-    with pytest.raises(RuntimeError, match="unavailable"):
+    styled_args = (x, _meta(3, 3, 32, 32), _meta(1, 32), _meta(1, 8, 8, 1), _meta(), _meta(32))
+    # every wrapper refuses a tensor off the card before it loads
+    with pytest.raises(ValueError, match="CUDA"):
         c3.conv3x3(x, _meta(3, 3, 32, 32))
-    with pytest.raises(RuntimeError, match="unavailable"):
-        sc.styled_conv(x, _meta(3, 3, 32, 32), _meta(1, 32), _meta(1, 8, 8, 1),
-                       _meta(), _meta(32))
-    # the pixel updates refuse a tensor off the card before they load
+    with pytest.raises(ValueError, match="CUDA"):
+        sc.styled_conv(*styled_args)
     with pytest.raises(ValueError, match="contiguous CUDA tensor"):
         pu.pgd_update(x, x, x, 0.1, 0.1)
     with pytest.raises(ValueError, match="contiguous CUDA tensor"):
         au.fused_adam(x, x, au.adam_init(x), 0.1)
     # past those checks, a tensor off the CPU reaches the loader and raises
     # with it: no fallback to the plain version
+    monkeypatch.setattr(c3, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(sc, "_check_cuda", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        c3.conv3x3(x, _meta(3, 3, 32, 32))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        sc.styled_conv(*styled_args)
     monkeypatch.setattr(pu, "_check_cuda", lambda name, t: None)
     monkeypatch.setattr(au, "_check_cuda", lambda name, t: None)
     with pytest.raises(RuntimeError, match="unavailable"):

@@ -264,3 +264,188 @@ def test_adam_kernel_refuses_before_any_build(no_build, case):
     if case != "meta":
         assert all(not t.any() for t in args.values())
 
+
+
+# what the conv wrappers refuse, on the CPU, before they build or load a
+# library: (changes to matching CPU arguments, the exception, its message)
+STYLED_REFUSED = {
+    "cpu": ({}, ValueError, "must be a CUDA tensor"),
+    "meta": ({k: torch.empty(v, device="meta") for k, v in dict(
+        x=(2, 8, 8, 32), weight=(3, 3, 32, 32), style=(2, 32), noise=(1, 8, 8, 1),
+        noise_strength=(), bias=(32,)).items()}, ValueError, "must be a CUDA tensor"),
+    "cin not a multiple of 16": ({"x": _planes(2, 8, 8, 24), "weight": _planes(3, 3, 24, 32),
+                                  "style": _planes(2, 24)}, ValueError, "unsupported shapes"),
+    "cout not a multiple of 32": ({"weight": _planes(3, 3, 32, 48), "bias": _planes(48)},
+                                  ValueError, "unsupported shapes"),
+    "per-sample noise": ({"noise": _planes(2, 8, 8, 1)}, ValueError, "unsupported shapes"),
+    "non-contiguous x": ({"x": _strided(2, 8, 8, 32)}, ValueError, "must be contiguous"),
+    "style": ({"style": _planes(2, 16)}, ValueError, "do not match x and w"),
+    "bias": ({"bias": _planes(16)}, ValueError, "do not match x and w"),
+}
+CONV_REFUSED = {
+    "cpu": ({}, ValueError, "must be on one CUDA device"),
+    "channels": ({"x": _planes(1, 8, 8, 48), "w": _planes(3, 3, 48, 48)}, ValueError,
+                 r"takes \(N,H,W,C\)"),
+    "dtype": ({"w": _planes(3, 3, 32, 32, dtype=torch.bfloat16)}, TypeError, "dtype"),
+    "non-contiguous x": ({"x": _strided(1, 8, 8, 32)}, ValueError, "contiguous"),
+}
+WGRAD_REFUSED = {
+    "cpu": ({}, ValueError, "must be on one CUDA device"),
+    "channels": ({"x": _planes(1, 8, 8, 48), "g": _planes(1, 8, 8, 48)}, ValueError,
+                 r"takes \(N,H,W,C\)"),
+    "shape": ({"g": _planes(1, 8, 4, 32)}, ValueError, "g must match x"),
+    "non-contiguous x": ({"x": _strided(1, 8, 8, 32)}, ValueError, "contiguous"),
+}
+
+
+@pytest.mark.parametrize("case", list(STYLED_REFUSED))
+def test_styled_conv_kernel_refuses_before_any_build(no_build, case):
+    """``styled_conv_kernel`` raises on tensors off the card, a Cin that is
+    not a multiple of 16, a Cout that is not a multiple of 32, a per-sample
+    noise plane, a non-contiguous x and a style or bias that does not match
+    before it builds, loads or launches anything."""
+    change, exc, msg = STYLED_REFUSED[case]
+    args = dict(x=_planes(2, 8, 8, 32), weight=_planes(3, 3, 32, 32), style=_planes(2, 32),
+                noise=_planes(1, 8, 8, 1), noise_strength=_planes(), bias=_planes(32))
+    with pytest.raises(exc, match=msg):
+        sc.styled_conv_kernel(**{**args, **change})
+    assert no_build == []
+
+
+@pytest.mark.parametrize("case", list(CONV_REFUSED))
+@pytest.mark.parametrize("kernel", ["forward", "input_grad"])
+def test_conv3x3_kernel_refuses_before_any_build(no_build, kernel, case):
+    """The conv3x3 forward and input-grad wrappers raise on tensors off the
+    card, channels the kernels do not take, mismatched dtypes and a
+    non-contiguous x before they build, load or launch anything."""
+    change, exc, msg = CONV_REFUSED[case]
+    args = {**dict(x=_planes(1, 8, 8, 32), w=_planes(3, 3, 32, 32)), **change}
+    fn = {"forward": c3.conv3x3_forward_kernel, "input_grad": c3.conv3x3_input_grad_kernel}
+    with pytest.raises(exc, match=msg):
+        fn[kernel](args["x"], args["w"])
+    assert no_build == []
+
+
+@pytest.mark.parametrize("case", list(WGRAD_REFUSED))
+def test_conv3x3_weight_grad_kernel_refuses_before_any_build(no_build, case):
+    """The weight-grad wrapper raises on tensors off the card, channels the
+    kernel does not take, a g that does not match x and a non-contiguous x
+    before it builds, loads or launches anything."""
+    change, exc, msg = WGRAD_REFUSED[case]
+    args = {**dict(x=_planes(1, 8, 8, 32), g=_planes(1, 8, 8, 32)), **change}
+    with pytest.raises(exc, match=msg):
+        c3.conv3x3_weight_grad_kernel(args["x"], args["g"])
+    assert no_build == []
+
+
+def _header_classes():
+    """``{name: (code, WgTile arguments)}`` from csrc/conv3x3_wgmma.cuh: the
+    ``using Wg<Name> = WgTile<...>`` lines and the cases of
+    ``launch_conv3x3_wgmma``."""
+    import re
+    text = (_lib.CSRC / "conv3x3_wgmma.cuh").read_text()
+    tiles = {m.group(1).lower(): tuple(int(a) if a.strip().lstrip("-").isdigit()
+                                       else a.strip() == "true" for a in m.group(2).split(","))
+             for m in re.finditer(r"using Wg(\w+) = WgTile<([^>]*)>;", text)}
+    codes = {m.group(2).lower(): int(m.group(1))
+             for m in re.finditer(r"case (\d+):\s*return launch_wgmma<STYLED, Wg(\w+)>", text)}
+    return {name: (codes[name], args) for name, args in tiles.items()}
+
+
+def test_mma_classes_mirror_the_header():
+    """``MMA_CLASSES`` holds the header's tile classes, field for field, under
+    the codes ``launch_conv3x3_wgmma`` switches on."""
+    header = _header_classes()
+    assert set(header) == {cls.name for cls in c3.MMA_CLASSES}
+    for cls in c3.MMA_CLASSES:
+        code, args = header[cls.name]
+        assert code == cls.code
+        assert args == (cls.th, cls.tw, cls.wgs, cls.team_wgs, cls.mt, cls.bn, cls.ck,
+                        cls.stages, cls.resident, cls.min_blocks)
+        assert cls.smem_bytes(64) <= c3.MMA_SMEM_MAX
+
+
+# the class of every styled_conv plane on the main paths (PERF.md section 6):
+# FFHQ's synthesis at batch 1 (PGD), 5 (white-box) and 6 (the partial
+# evaluation), car's at 4 and church's at 3; conv3x3's planes
+MAIN_PATH_CLASSES = {
+    1: ("small", "small", "small", "small", "mid", "wide", "wide", "narrow64", "narrow32"),
+    5: ("small", "small", "mid", "wide", "wide", "wide", "wide", "narrow64", "narrow32"),
+    6: ("small", "small", "mid", "wide", "wide", "wide", "wide", "narrow64", "narrow32"),
+    4: ("small", "small", "small", "mid", "wide", "wide", "wide", "narrow64"),
+    3: ("small", "small", "small", "mid", "wide", "wide", "wide"),
+}
+SYNTHESIS = ((4, 512), (8, 512), (16, 512), (32, 512), (64, 512), (128, 256), (256, 128),
+             (512, 64), (1024, 32))
+
+
+@pytest.mark.parametrize("batch", list(MAIN_PATH_CLASSES))
+def test_main_path_planes_get_their_class(batch):
+    got = tuple(c3.mma_class(batch, res, res, ch, ch).name
+                for res, ch in SYNTHESIS[:len(MAIN_PATH_CLASSES[batch])])
+    assert got == MAIN_PATH_CLASSES[batch]
+    for n, res, ch in ((1, 1024, 32), (5, 1024, 32), (1, 512, 64), (4, 512, 64), (5, 512, 64)):
+        assert c3.mma_class(n, res, res, ch, ch).name == f"narrow{ch}"
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_phase3_ragged_cases_reach_every_class_and_box_edge():
+    """``chip_smoke.py`` phase 3's ragged cases put every tile class on a
+    plane whose height and width are not multiples of its tile, reach a
+    plane of 1-3 pixels a side, a partial channel chunk in every class
+    whose chunk is wider than 16, Cout 96, and a view 2 bytes off."""
+    smoke = _chip_smoke()
+    cases = list(smoke.STYLED_RAGGED) + [(n, h, w, c, c) for n, h, w, c in smoke.CONV_RAGGED]
+    picked = [(c3.mma_class(*case), case) for case in cases]
+    assert {cls.name for cls, _ in picked} == {cls.name for cls in c3.MMA_CLASSES}
+    for cls in c3.MMA_CLASSES:
+        mine = [case for got, case in picked if got == cls]
+        assert any(h % cls.th for _, h, _, _, _ in mine), cls.name
+        assert any(w % cls.tw for _, _, w, _, _ in mine), cls.name
+        if cls.ck > 16:
+            assert any(cin % cls.ck for _, _, _, cin, _ in mine), cls.name
+    assert any(min(h, w) <= 3 for _, h, w, _, _ in cases)
+    assert any(cout == 96 for *_, cout in cases)
+    assert smoke.VIEW_OFF["styled"] in smoke.STYLED_RAGGED
+    assert smoke.VIEW_OFF["conv"] in smoke.CONV_RAGGED
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cls,cin,cout", [(c3.NARROW32, 48, 32), (c3.NARROW64, 64, 64),
+                                          (c3.WIDE, 32, 256), (c3.SMALL, 48, 96)])
+def test_pack_mma_weights_is_the_descriptor_layout(dtype, cls, cin, cout):
+    """The packed weights are one contiguous buffer in which element (n, k)
+    of the B block of (Cout slice, chunk, tap, k-step) sits where the
+    kernel's wgmma descriptor reads it (K-major, no swizzle: 8 x 8 core
+    matrices of 128 bytes, ``16 * BN`` bytes between the two along K), and
+    input channels past Cin are zero; also from weights already in bf16."""
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(3, 3, cin, cout, generator=g).to(dtype)
+    packed = c3.pack_mma_weights(w, cls)
+    assert packed.is_contiguous() and packed.dtype == torch.bfloat16
+    flat = packed.reshape(-1)
+    ks_n, chunks = cls.ck // 16, cls.chunks(cin)
+    n = torch.arange(cls.bn).view(1, -1)
+    k = torch.arange(16).view(-1, 1)
+    byte = (n % 8) * 16 + (n // 8) * 128 + (k % 8) * 2 + (k // 8) * 16 * cls.bn
+    for slice_ in range(cout // cls.bn):
+        for chunk in range(chunks):
+            for tap in range(9):
+                for ks in range(ks_n):
+                    start = (((slice_ * chunks + chunk) * 9 + tap) * ks_n + ks) * 16 * cls.bn
+                    block = flat[start + byte // 2].float()
+                    ci = chunk * cls.ck + ks * 16 + k.view(-1)
+                    want = torch.zeros(16, cls.bn)
+                    inside = ci < cin
+                    want[inside] = w[tap // 3, tap % 3, ci[inside],
+                                     slice_ * cls.bn:(slice_ + 1) * cls.bn].bfloat16().float()
+                    assert torch.equal(block, want)

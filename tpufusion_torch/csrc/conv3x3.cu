@@ -5,36 +5,44 @@
 //
 // The input grad is the forward kernel on the spatially flipped,
 // channel-transposed weights, as the TPU's _wp_bwd does; the wrapper
-// (tpufusion_torch/ops/conv3x3.py) prepares those weights.
+// (tpufusion_torch/ops/conv3x3.py) prepares and packs those weights.
 //
 // Bound on an H100 at the main-path shapes (C = 32 at 1024^2, C = 64 at
-// 512^2, bf16): 0.6-1.2 GFLOP per sample against 4 and 2 bytes of x and y
-// per output channel and pixel (33 MB a sample), so the memory rate bounds
-// it (10-20 us a sample). The bf16 forward and input grad run on the tensor
-// cores (conv3x3_mma_kernel, the Narrow class): all Cout in one block,
-// the 9 x C x C weights resident in shared memory, x streamed once through
-// a cp.async ring with the zero halo filled by the copy, y staged for
-// 16-byte stores. The bf16 weight grad (conv3x3_wgrad_mma_kernel) is a
-// tensor-core GEMM over pixels: per tap a C x C product with K = pixels,
-// both operands read from the staged [pixel][channel] tiles with
-// ldmatrix.trans, one block summing all 9 x C x C outputs so that x and g
-// are read once; at C = 32 the bytes bound it (127 FLOP per byte moved), at
-// C = 64 the tensor cores' fragment loads do. Blocks write partials that a
-// second pass adds in a fixed order. float32 runs the CUDA-core kernels,
-// which keep exact float32 products. The 128-lane width packing of the TPU
-// kernels (pack_weights / unpack_dw) is not carried over (it existed to
-// fill the TPU's 128-lane matrix unit). See conv3x3_common.cuh for the
-// tiling.
-#include "conv3x3_common.cuh"
+// 512^2, bf16): 2 * 9 * C^2 operations against 4 C bytes a pixel, 144
+// (C = 32) and 288 (C = 64) operations a byte against the card's ridge of
+// 295: C = 32 is bound by its bytes, C = 64 by both rates at once (car's
+// 4 x 512^2 c64: 0.078 ms of operations, 0.080 ms of bytes). The bf16 forward and input grad run on conv3x3_wgmma_kernel
+// (conv3x3_wgmma.cuh), the Narrow classes: all Cout in one block, the
+// 9 x C x C weights resident in shared memory in wgmma's B layout (one bulk
+// copy a block), the haloed input streamed once by TMA into a ring of
+// mbarrier stages, A from ldmatrix at tap-shifted rows, two consumer
+// warpgroups on alternate tiles so one's epilogue overlaps the other's
+// wgmmas. Measured (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py phase 3,
+// the kernel alone): forward and input grad 74-81% of the bound at c32,
+// 59-61% at 4-5 x 512^2 c64 (car's 4 x 512^2: 0.133-0.134 ms against
+// F.conv2d's 0.173), 54% at 1 x 512^2 c64 (PERF.md). The bf16 weight grad
+// (conv3x3_wgrad_mma_kernel) is a tensor-core GEMM over pixels on mma.sync:
+// per tap a C x C product with K = pixels, both operands read from the
+// staged [pixel][channel] tiles with ldmatrix.trans, one block summing all
+// 9 x C x C outputs so that x and g are read once; at C = 32 the bytes
+// bound it (127 FLOP per byte moved), at C = 64 the tensor cores' fragment
+// loads do. Blocks write partials that a second pass adds in a fixed order.
+// float32 runs the CUDA-core kernels, which keep exact float32 products.
+// The 128-lane width packing of the TPU kernels (pack_weights / unpack_dw)
+// is not carried over (it existed to fill the TPU's 128-lane matrix unit).
+// See conv3x3_common.cuh and conv3x3_wgmma.cuh for the tiling.
+#include "conv3x3_wgmma.cuh"
 
+// w: HWIO weights (dtype 0: float32), else bf16 weights packed for tile
+// class `cls` (ops/conv3x3.py::pack_mma_weights)
 extern "C" int tf_conv3x3_fwd(const void* x, const void* w, void* y, int N, int H,
-                              int W, int C, int dtype, void* stream) {
+                              int W, int C, int dtype, int cls, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return tf::launch_conv3x3_fwd<float, false>(x, w, y, nullptr, nullptr, nullptr,
                                                 nullptr, N, H, W, C, C, s);
-  return tf::launch_conv3x3_mma<false>(x, w, y, nullptr, nullptr, nullptr, nullptr, N, H, W,
-                                       C, C, s);
+  return tf::launch_conv3x3_wgmma<false>(cls, x, w, y, nullptr, nullptr, nullptr, nullptr, N,
+                                         H, W, C, C, s);
 }
 
 // partial: max_blocks * 9 * C * C float32 scratch; out: (3, 3, C, C) float32.

@@ -1,72 +1,46 @@
-// 3x3 SAME stride-1 convolution over NHWC activations for Hopper, shared by
+// 3x3 SAME stride-1 convolution over NHWC activations for Hopper: what
 // styled_conv.cu (modulated, with the StyleGAN2 epilogue) and conv3x3.cu
-// (plain forward, input grad and weight grad).
+// (plain forward, input grad and weight grad) share. It replaces the TPU
+// kernels tpufusion/ops/styled_conv.py::_pallas_styled_conv and
+// tpufusion/ops/pallas_conv.py::_conv3x3_wp_fwd_impl / _conv3x3_wp_dw_impl.
 //
 // Layouts: x (N, H, W, Cin) and y (N, H, W, Cout) contiguous NHWC, weights
-// (3, 3, Cin, Cout) contiguous HWIO -- the byte layouts the TPU kernels read.
-// Every sum is float32. The forward routes by dtype in the C entries:
-//
-// - bfloat16 (the main path): conv3x3_mma_kernel, an implicit GEMM on the
-//   tensor cores. M = output pixels of one sample's TH x TW tile, N = Cout,
-//   K = 9 taps x Cin walked as Cin chunks of CK x 9 taps. cp.async copies
-//   (16 bytes = 8 channels) stage the haloed (TH+2) x (TW+2) input tile of a
-//   chunk in a ring of STAGES slots, so loads of the next chunks overlap the
-//   MMAs of this one; the zero halo is cp.async's zero fill (src-size 0).
-//   Each staged pixel feeds all 9 taps: ldmatrix takes one row address per
-//   lane, so a tap's (ky, kx) shift is an address offset into the same
-//   tile. Pixel pitches are padded by 8 elements (an odd number of 16-byte
-//   units), so the 8 rows of each ldmatrix hit 8 different bank groups.
-//   mma.sync.m16n8k16 bf16 -> f32. The modulation (STYLED) is one __hmul2
-//   pass over each landed tile by bf16(s[n, ci]), one rounding to bf16, as
-//   xs = x * s.astype(x.dtype) does in the TPU kernel. The epilogue applies
-//   sigma[n, co], bias[co], the pre-scaled noise plane and leaky-ReLU *
-//   sqrt2 in float32 (STYLED), rounds to bf16 once and stages the tile in
-//   shared memory, so each thread stores 16-byte runs of NHWC.
-//   Blocks are persistent over M tiles (grid = what fits on the SMs), and
-//   the result does not depend on the grid: each output is one block's
-//   float32 sum in a fixed order, with no split-K.
-//   Tile classes (launch_conv3x3_mma picks one from the shapes):
-//   * Narrow (Cout 32 or 64, the 512^2 / 1024^2 planes and the conv3x3
-//     kernels): 16 x 16 pixels and all of Cout in one block, the 9 x Cin x
-//     Cout weights resident in shared memory (18 / 72 KB), loaded once per
-//     block; these planes are bound by the bytes of x and y.
-//   * Wide (Cout % 128 == 0 with at least 80 blocks: 32^2 at batch 5,
-//     64^2-256^2): 256 pixels x 128 channels per block, 8 warps of 64 x 64,
-//     the weight slice streamed with the input; bound by operations.
-//   * Mid (Cout % 64 == 0 with at least 80 blocks of 128 pixels x 64
-//     channels: 64^2 at batch 1, 16^2 at batch 5), two blocks per SM.
-//   * Small (the rest: the 4^2-32^2 planes at batch 1, and ragged Cout):
-//     64 pixels x 32 channels per block, so the few pixels still give the
-//     SMs some blocks.
-// - float32: conv3x3_fwd_kernel, a direct conv on the CUDA cores (an 8x16
-//   pixel x 32 channel tile, 16-channel chunks, a 4x4 float32 accumulator per
-//   thread). It keeps float32 products exact, which TF32 tensor cores would
-//   not; the fp32 policy is not the main path.
-// - weight grad, bfloat16: conv3x3_wgrad_mma_kernel, a tensor-core GEMM over
-//   pixels. Per tap, D[ci, co] += A[ci, px] * B[px, co] with K = pixels: nine
-//   C x C products that share one B (the g tile). Tiles land in shared
-//   memory as [pixel][channel] through the same kind of cp.async ring (a
-//   haloed x tile and a g tile per stage, out-of-range pixels zero-filled,
-//   so the halo and a ragged edge add 0), which is K-strided for both
-//   operands, so both fragments come from ldmatrix.trans. A k-step is 16
-//   consecutive pixels of a tile row and a tap is a shift of the x row
-//   address. A warp owns a 16 (ci) x 32 (co) slab of all nine taps (144
-//   float32 accumulators a thread), so each x fragment feeds 4 MMAs, and
-//   walks a 16-pixel strip of the tile row by row: the three x fragments
-//   (kx = 0, 1, 2) of a halo row serve ky = 2, 1, 0 of three successive
-//   rows, so a row costs 3 new x fragment loads and 2 g loads for 36 MMAs.
-//   At C = 64 the 8 warps are the 8 slabs and each walks every pixel; at
-//   C = 32 there are 2 slabs and the 8 warps form 4 groups that split the
-//   tile's strips and rows, added in group order through shared memory
-//   when the block is done. One block computes all 9 x C x C outputs, so x
-//   and g are read once (plus the halo: 20% of x at 16 x 32 pixels, 33% at
-//   8 x 32). The next tile's copies are issued a few per row step beside
-//   this tile's MMAs. Persistent blocks stride over the tiles in a fixed
-//   order and write one partial each; sum_partials_kernel adds them in a
-//   fixed order. No atomics: the same bits every run.
-// - weight grad, float32: conv3x3_wgrad_kernel on the CUDA cores (blocks
+// (3, 3, Cin, Cout) contiguous HWIO -- the byte layouts the TPU kernels read
+// -- except the bf16 forward's, which the wrapper packs for wgmma. Every sum
+// is float32. This file holds:
+// - the float32 forward, conv3x3_fwd_kernel: a direct conv on the CUDA cores
+//   (an 8x16 pixel x 32 channel tile, 16-channel chunks, a 4x4 float32
+//   accumulator per thread), which keeps float32 products exact where TF32
+//   tensor cores would not; the fp32 policy is not the main path. The bf16
+//   forward (the main path) is conv3x3_wgmma_kernel in conv3x3_wgmma.cuh.
+// - the bf16 weight grad, conv3x3_wgrad_mma_kernel, a tensor-core GEMM over
+//   pixels on mma.sync. Per tap, D[ci, co] += A[ci, px] * B[px, co] with
+//   K = pixels: nine C x C products that share one B (the g tile). Tiles land
+//   in shared memory as [pixel][channel] through a cp.async ring (a haloed
+//   x tile and a g tile per stage, out-of-range pixels zero-filled, so the
+//   halo and a ragged edge add 0), which is K-strided for both operands, so
+//   both fragments come from ldmatrix.trans. A k-step is 16 consecutive
+//   pixels of a tile row and a tap is a shift of the x row address. A warp
+//   owns a 16 (ci) x 32 (co) slab of all nine taps (144 float32
+//   accumulators a thread), so each x fragment feeds 4 MMAs, and walks a
+//   16-pixel strip of the tile row by row: the three x fragments (kx = 0, 1,
+//   2) of a halo row serve ky = 2, 1, 0 of three successive rows, so a row
+//   costs 3 new x fragment loads and 2 g loads for 36 MMAs. At C = 64 the 8
+//   warps are the 8 slabs and each walks every pixel; at C = 32 there are 2
+//   slabs and the 8 warps form 4 groups that split the tile's strips and
+//   rows, added in group order through shared memory when the block is
+//   done. One block computes all 9 x C x C outputs, so x and g are read once
+//   (plus the halo: 20% of x at 16 x 32 pixels, 33% at 8 x 32). The next
+//   tile's copies are issued a few per row step beside this tile's MMAs.
+//   Persistent blocks stride over the tiles in a fixed order and write one
+//   partial each; sum_partials_kernel adds them in a fixed order. No
+//   atomics: the same bits every run. It runs on no main path (the attacks
+//   freeze the weights).
+// - the float32 weight grad, conv3x3_wgrad_kernel, on the CUDA cores (blocks
 //   stride over 4x32-pixel tiles and keep a 9x4 float32 accumulator per
 //   thread for one 32x32 (ci, co) weight tile), with the same second pass.
+// - the PTX helpers the tensor-core kernels share (cp.async, ldmatrix,
+//   mma.sync, bf16 pairs).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -102,7 +76,7 @@ conv3x3_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restri
                    const float* __restrict__ style, const float* __restrict__ sigma,
                    const float* __restrict__ bias, const float* __restrict__ noise,
                    int H, int W, int Cin, int Cout) {
-  static_assert(std::is_same<T, float>::value, "bf16 runs on conv3x3_mma_kernel");
+  static_assert(std::is_same<T, float>::value, "bf16 runs on conv3x3_wgmma_kernel");
   __shared__ float s_in[FT_IN_H * FT_IN_W * FT_CIP];
   __shared__ __align__(16) float s_w[9 * FT_CI * FT_CO];
 
@@ -204,7 +178,7 @@ int launch_conv3x3_fwd(const void* x, const void* w, void* y, const float* style
   return (int)cudaGetLastError();
 }
 
-// ---- bfloat16 forward on the tensor cores ----------------------------------
+// ---- PTX helpers of the tensor-core kernels ---------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -249,318 +223,6 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
 __device__ __forceinline__ uint32_t hmul2_bits(uint32_t a, uint32_t b) {
   return bf16x2_bits(__hmul2(*reinterpret_cast<__nv_bfloat162*>(&a),
                              *reinterpret_cast<__nv_bfloat162*>(&b)));
-}
-
-// One tile class of the implicit GEMM. Shared memory, in this order: the
-// weights (RESIDENT: 9 x Cin rows, loaded once; else a ring of 9 x CK rows),
-// the ring of haloed input tiles, the output staging tile, the ring of
-// style chunks. Rows of weights and pixels are padded by 8 bf16.
-template <int TH_, int TW_, int BN_, int CK_, int WARPS_M_, int WARPS_N_, int STAGES_,
-          bool RESIDENT_>
-struct MmaTile {
-  static constexpr int TH = TH_, TW = TW_, BN = BN_, CK = CK_;
-  static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_, STAGES = STAGES_;
-  static constexpr bool RESIDENT = RESIDENT_;
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-  static constexpr int BM = TH * TW;
-  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // one warp's tile
-  static constexpr int MF = WM / 16, NF = WN / 8;             // its mma tiles
-  static constexpr int HALO_W = TW + 2, HALO_PIX = (TH + 2) * (TW + 2);
-  static constexpr int PITCH_IN = CK + 8, PITCH_W = BN + 8;   // bf16 elements
-  static constexpr int IN_STAGE = HALO_PIX * PITCH_IN * 2;    // bytes
-  static constexpr int W_STAGE = 9 * CK * PITCH_W * 2;
-  static constexpr int OUT = BM * PITCH_W * 2;
-  static constexpr int STY_STAGE = CK * 4;
-  static_assert(WM % 16 == 0 && WN % 16 == 0 && TW % 8 == 0 && CK % 16 == 0,
-                "warp tiles are whole m16 x n16 pairs; ldmatrix rows stay in one tile row");
-  __host__ __device__ static size_t w_bytes(int Cin) {
-    return RESIDENT ? (size_t)9 * Cin * PITCH_W * 2 : (size_t)STAGES * W_STAGE;
-  }
-  __host__ __device__ static size_t smem_bytes(int Cin) {
-    return w_bytes(Cin) + (size_t)STAGES * (IN_STAGE + STY_STAGE) + OUT;
-  }
-};
-
-// The tile classes, chosen by timing candidates on the H100 at the synthesis
-// planes (PERF.md).            TH  TW   BN  CK  warps(M x N) stages resident
-using MmaNarrow32 = MmaTile<16, 16, 32, 32, 8, 1, 2, true>;   // 2 blocks / SM
-using MmaNarrow64 = MmaTile<16, 16, 64, 32, 8, 1, 3, true>;
-using MmaWide = MmaTile<16, 16, 128, 16, 4, 2, 2, false>;     // 64 x 64 warp tiles
-using MmaMid = MmaTile<8, 16, 64, 16, 4, 2, 3, false>;        // 2 blocks / SM
-using MmaSmall = MmaTile<8, 8, 32, 32, 2, 2, 3, false>;
-constexpr int MMA_MIN_BLOCKS = 80;  // Wide / Mid only with this many blocks
-
-constexpr size_t MMA_SMEM_MAX = 232448;  // sm_90: 227 KB of dynamic shared memory a block
-
-// y = conv3x3(x [* s]) [epilogue], bf16 in and out. grid (persistent blocks
-// over the M tiles, Cout / BN); gridDim.x <= the number of M tiles.
-template <bool STYLED, class C>
-__global__ void __launch_bounds__(C::THREADS)
-conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                   __nv_bfloat16* __restrict__ y, const float* __restrict__ style,
-                   const float* __restrict__ sigma, const float* __restrict__ bias,
-                   const float* __restrict__ noise, int N, int H, int W, int Cin, int Cout) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int nchunks = (Cin + C::CK - 1) / C::CK;
-  const int tiles_w = (W + C::TW - 1) / C::TW;
-  const int per_n = ((H + C::TH - 1) / C::TH) * tiles_w;
-  const int m_tiles = N * per_n;
-  const int co0 = blockIdx.y * C::BN;
-  const int my_tiles = (m_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const int total = my_tiles * nchunks;
-
-  const size_t wb = C::w_bytes(Cin);
-  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* s_out = reinterpret_cast<__nv_bfloat16*>(smem + wb + C::STAGES * C::IN_STAGE);
-  float* s_sty = reinterpret_cast<float*>(smem + wb + C::STAGES * C::IN_STAGE + C::OUT);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % C::WARPS_M, wn = warp / C::WARPS_M;
-
-  // pipeline step it -> (sample, tile origin, first input channel)
-  auto step_of = [&](int it, int& n, int& h0, int& w0, int& ci0) {
-    const int t = blockIdx.x + (it / nchunks) * gridDim.x;
-    ci0 = (it % nchunks) * C::CK;
-    n = t / per_n;
-    const int r = t % per_n;
-    h0 = (r / tiles_w) * C::TH;
-    w0 = (r % tiles_w) * C::TW;
-  };
-
-  auto load_stage = [&](int it) {
-    int n, h0, w0, ci0;
-    step_of(it, n, h0, w0, ci0);
-    const int slot = it % C::STAGES;
-    constexpr int PARTS = C::CK / 8;
-    const uint32_t in_base = smem_u32(smem + wb + slot * C::IN_STAGE);
-    for (int i = tid; i < C::HALO_PIX * PARTS; i += C::THREADS) {
-      const int p = i / PARTS, part = i % PARTS;
-      const int gh = h0 + p / C::HALO_W - 1, gw = w0 + p % C::HALO_W - 1;
-      const int ci = ci0 + part * 8;
-      const bool ok = gh >= 0 && gh < H && gw >= 0 && gw < W && ci < Cin;
-      const __nv_bfloat16* src = ok ? x + (((size_t)n * H + gh) * W + gw) * Cin + ci : x;
-      cp_async16(in_base + (p * C::PITCH_IN + part * 8) * 2, src, ok);
-    }
-    if (!C::RESIDENT) {
-      constexpr int WP = C::BN / 8;
-      const uint32_t w_base = smem_u32(smem + slot * C::W_STAGE);
-      for (int i = tid; i < 9 * C::CK * WP; i += C::THREADS) {
-        const int row = i / WP, part = i % WP;  // row = tap * CK + k
-        const int ci = ci0 + row % C::CK;
-        const bool ok = ci < Cin;
-        const __nv_bfloat16* src =
-            ok ? w + ((size_t)(row / C::CK) * Cin + ci) * Cout + co0 + part * 8 : w;
-        cp_async16(w_base + (row * C::PITCH_W + part * 8) * 2, src, ok);
-      }
-    }
-    if (STYLED) {
-      for (int i = tid; i < C::CK / 4; i += C::THREADS) {
-        const int ci = ci0 + i * 4;
-        const bool ok = ci < Cin;
-        cp_async16(smem_u32(s_sty + slot * C::CK + i * 4),
-                   ok ? style + (size_t)n * Cin + ci : style, ok);
-      }
-    }
-  };
-
-  if (C::RESIDENT) {  // all 9 x Cin rows of this block's Cout slice, once
-    constexpr int WP = C::BN / 8;
-    const uint32_t w_base = smem_u32(s_w);
-    for (int i = tid; i < 9 * Cin * WP; i += C::THREADS) {
-      const int row = i / WP, part = i % WP;  // row = tap * Cin + ci
-      cp_async16(w_base + (row * C::PITCH_W + part * 8) * 2,
-                 w + (size_t)row * Cout + co0 + part * 8, true);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < total) load_stage(s);
-    cp_async_commit();
-  }
-
-  // each lane's ldmatrix row: A = the halo pixel of output row m at tap (0, 0)
-  // and its 8-channel half; B = weight row k and its 8-column half
-  int a_off[C::MF];
-#pragma unroll
-  for (int mf = 0; mf < C::MF; ++mf) {
-    const int m = wm * C::WM + mf * 16 + (lane & 15);
-    a_off[mf] = ((m / C::TW) * C::HALO_W + m % C::TW) * C::PITCH_IN + (lane >> 4) * 8;
-  }
-  const int b_off = (lane & 15) * C::PITCH_W + wn * C::WN + (lane >> 4) * 8;
-  const int w_rows_per_tap = C::RESIDENT ? Cin : C::CK;
-
-  float acc[C::MF][C::NF][4];
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();  // step it landed; every warp is done with step it - 1's slot
-    if (it + C::STAGES - 1 < total) load_stage(it + C::STAGES - 1);
-    cp_async_commit();
-
-    const int chunk = it % nchunks;
-    const int ci0 = chunk * C::CK;
-    const int slot = it % C::STAGES;
-    if (STYLED) {  // modulate the landed tile in place: bf16(x * bf16(s)), once
-      constexpr int PARTS = C::CK / 8;
-      unsigned char* tile = smem + wb + slot * C::IN_STAGE;
-      for (int i = tid; i < C::HALO_PIX * PARTS; i += C::THREADS) {
-        const int p = i / PARTS, part = i % PARTS;
-        uint4* q = reinterpret_cast<uint4*>(tile + (p * C::PITCH_IN + part * 8) * 2);
-        const float4* sp = reinterpret_cast<const float4*>(s_sty + slot * C::CK + part * 8);
-        const float4 s0 = sp[0], s1 = sp[1];
-        uint4 v = *q;
-        v.x = hmul2_bits(v.x, bf16x2_bits(__floats2bfloat162_rn(s0.x, s0.y)));
-        v.y = hmul2_bits(v.y, bf16x2_bits(__floats2bfloat162_rn(s0.z, s0.w)));
-        v.z = hmul2_bits(v.z, bf16x2_bits(__floats2bfloat162_rn(s1.x, s1.y)));
-        v.w = hmul2_bits(v.w, bf16x2_bits(__floats2bfloat162_rn(s1.z, s1.w)));
-        *q = v;
-      }
-      __syncthreads();
-    }
-    if (chunk == 0) {
-#pragma unroll
-      for (int mf = 0; mf < C::MF; ++mf)
-#pragma unroll
-        for (int nf = 0; nf < C::NF; ++nf)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mf][nf][j] = 0.f;
-    }
-    const uint32_t a_base = smem_u32(smem + wb + slot * C::IN_STAGE);
-    const uint32_t b_base = C::RESIDENT ? smem_u32(s_w) + ci0 * C::PITCH_W * 2
-                                        : smem_u32(smem + slot * C::W_STAGE);
-    const int ksteps = min(C::CK, Cin - ci0) / 16;
-#pragma unroll
-    for (int ks = 0; ks < C::CK / 16; ++ks) {
-      if (ks >= ksteps) break;
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int shift = ((tap / 3) * C::HALO_W + tap % 3) * C::PITCH_IN + ks * 16;
-        uint32_t a[C::MF][4];
-#pragma unroll
-        for (int mf = 0; mf < C::MF; ++mf) {
-          ldsm_x4(a[mf], a_base + (a_off[mf] + shift) * 2);
-        }
-        uint32_t b[C::NF][2];
-#pragma unroll
-        for (int nf2 = 0; nf2 < C::NF / 2; ++nf2) {
-          uint32_t r[4];
-          ldsm_x4_t(r, b_base + (b_off + (tap * w_rows_per_tap + ks * 16) * C::PITCH_W +
-                                 nf2 * 16) * 2);
-          b[2 * nf2][0] = r[0];
-          b[2 * nf2][1] = r[1];
-          b[2 * nf2 + 1][0] = r[2];
-          b[2 * nf2 + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mf = 0; mf < C::MF; ++mf)
-#pragma unroll
-          for (int nf = 0; nf < C::NF; ++nf) mma_bf16(acc[mf][nf], a[mf], b[nf][0], b[nf][1]);
-      }
-    }
-    if (chunk != nchunks - 1) continue;
-
-    // epilogue: float32 -> (STYLED: sigma, bias, noise, lrelu * sqrt2) -> bf16
-    // into the staging tile, then 16-byte stores of NHWC
-    int n, h0, w0, ci_unused;
-    step_of(it, n, h0, w0, ci_unused);
-#pragma unroll
-    for (int mf = 0; mf < C::MF; ++mf) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = wm * C::WM + mf * 16 + (lane >> 2) + half * 8;
-        const int oh = h0 + m / C::TW, ow = w0 + m % C::TW;
-        float nz = 0.f;
-        if (STYLED && oh < H && ow < W) nz = noise[(size_t)oh * W + ow];
-#pragma unroll
-        for (int nf = 0; nf < C::NF; ++nf) {
-          const int col = wn * C::WN + nf * 8 + (lane & 3) * 2;
-          float v0 = acc[mf][nf][half * 2], v1 = acc[mf][nf][half * 2 + 1];
-          if (STYLED) {
-            const int co = co0 + col;
-            const float2 sg = *reinterpret_cast<const float2*>(sigma + (size_t)n * Cout + co);
-            const float2 bs = *reinterpret_cast<const float2*>(bias + co);
-            v0 = v0 * sg.x + bs.x + nz;
-            v1 = v1 * sg.y + bs.y + nz;
-            v0 = (v0 >= 0.f ? v0 : 0.2f * v0) * 1.4142135623730951f;
-            v1 = (v1 >= 0.f ? v1 : 0.2f * v1) * 1.4142135623730951f;
-          }
-          *reinterpret_cast<__nv_bfloat162*>(s_out + m * C::PITCH_W + col) =
-              __floats2bfloat162_rn(v0, v1);
-        }
-      }
-    }
-    __syncthreads();
-    constexpr int OP = C::BN / 8;
-    for (int i = tid; i < C::BM * OP; i += C::THREADS) {
-      const int m = i / OP, part = i % OP;
-      const int oh = h0 + m / C::TW, ow = w0 + m % C::TW;
-      if (oh < H && ow < W)
-        *reinterpret_cast<uint4*>(y + (((size_t)n * H + oh) * W + ow) * Cout + co0 + part * 8) =
-            *reinterpret_cast<const uint4*>(s_out + m * C::PITCH_W + part * 8);
-    }
-  }
-  cp_async_wait<0>();
-}
-
-template <bool STYLED, class C>
-int launch_mma(const void* x, const void* w, void* y, const float* style, const float* sigma,
-               const float* bias, const float* noise, int N, int H, int W, int Cin, int Cout,
-               cudaStream_t stream) {
-  auto kern = conv3x3_mma_kernel<STYLED, C>;
-  const size_t smem = C::smem_bytes(Cin);
-  static size_t smem_set = 0;  // the kernel's dynamic shared memory limit so far
-  if (smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_set = smem;
-  }
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  static size_t occ_smem = 0;  // blocks per SM at the last shared memory size asked
-  static int per_sm = 0;
-  if (smem != occ_smem) {
-    const cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, C::THREADS, smem);
-    if (e != cudaSuccess) return (int)e;
-    occ_smem = smem;
-  }
-  const int n_tiles = Cout / C::BN;
-  const int m_tiles = N * ((H + C::TH - 1) / C::TH) * ((W + C::TW - 1) / C::TW);
-  int gx = per_sm * sms / n_tiles;
-  gx = gx < 1 ? 1 : (gx > m_tiles ? m_tiles : gx);
-  kern<<<dim3(gx, n_tiles), C::THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      static_cast<__nv_bfloat16*>(y), style, sigma, bias, noise, N, H, W, Cin, Cout);
-  return (int)cudaGetLastError();
-}
-
-// The bf16 forward: picks the tile class from the shapes (see the header).
-// Takes Cin % 16 == 0 and Cout % 32 == 0, any N, H, W.
-template <bool STYLED>
-int launch_conv3x3_mma(const void* x, const void* w, void* y, const float* style,
-                       const float* sigma, const float* bias, const float* noise, int N, int H,
-                       int W, int Cin, int Cout, cudaStream_t stream) {
-  if (Cout == 32 && MmaNarrow32::smem_bytes(Cin) <= MMA_SMEM_MAX)
-    return launch_mma<STYLED, MmaNarrow32>(x, w, y, style, sigma, bias, noise, N, H, W, Cin,
-                                           Cout, stream);
-  if (Cout == 64 && MmaNarrow64::smem_bytes(Cin) <= MMA_SMEM_MAX)
-    return launch_mma<STYLED, MmaNarrow64>(x, w, y, style, sigma, bias, noise, N, H, W, Cin,
-                                           Cout, stream);
-  auto blocks = [&](int th, int tw, int bn) {
-    return (long long)N * ((H + th - 1) / th) * ((W + tw - 1) / tw) * (Cout / bn);
-  };
-  if (Cout % MmaWide::BN == 0 && blocks(MmaWide::TH, MmaWide::TW, MmaWide::BN) >= MMA_MIN_BLOCKS)
-    return launch_mma<STYLED, MmaWide>(x, w, y, style, sigma, bias, noise, N, H, W, Cin, Cout,
-                                       stream);
-  if (Cout % MmaMid::BN == 0 && blocks(MmaMid::TH, MmaMid::TW, MmaMid::BN) >= MMA_MIN_BLOCKS)
-    return launch_mma<STYLED, MmaMid>(x, w, y, style, sigma, bias, noise, N, H, W, Cin, Cout,
-                                      stream);
-  return launch_mma<STYLED, MmaSmall>(x, w, y, style, sigma, bias, noise, N, H, W, Cin, Cout,
-                                      stream);
 }
 
 // ---- weight grad, bfloat16 on the tensor cores ------------------------------

@@ -27,8 +27,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Each source's C entries and their argument types (all return a cudaError_t
 # as int). ``load`` declares them once, so the wrappers call them directly.
 SIGNATURES = {
-    "styled_conv": {"tf_styled_conv_fwd": [_P] * 7 + [_I] * 6 + [_P]},
-    "conv3x3": {"tf_conv3x3_fwd": [_P] * 3 + [_I] * 5 + [_P],
+    "styled_conv": {"tf_styled_conv_fwd": [_P] * 7 + [_I] * 7 + [_P]},
+    "conv3x3": {"tf_conv3x3_fwd": [_P] * 3 + [_I] * 6 + [_P],
                 "tf_conv3x3_wgrad": [_P] * 4 + [_I] * 6 + [_P]},
     "pgd_update": {"tf_pgd_update": [_P] * 4 + [ctypes.c_longlong, _I] + [_F] * 4 + [_P]},
     "adam_update": {"tf_adam_update": [_P] * 4 + [ctypes.c_longlong] + [_F] * 3 + [_P]},
@@ -102,16 +102,25 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+# what the bf16 conv entries return, plus the CUresult, when x's TMA tensor
+# map cannot be encoded (csrc/conv3x3_wgmma.cuh)
+TENSOR_MAP_ERROR = 100000
+
+
 def check(rc: int, what: str) -> None:
-    """Raise if a C entry returned a CUDA error (its ``cudaGetLastError``)."""
+    """Raise if a C entry returned a CUDA error (its ``cudaGetLastError``,
+    a refused ``cudaFuncSetAttribute``) or could not encode a tensor map."""
+    if rc >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with CUresult "
+                           f"{rc - TENSOR_MAP_ERROR}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
 
 
 def aligned16(t):
     """``t``, or a contiguous copy of it where ``t`` does not start on a
-    16-byte boundary (a view at an odd offset): the bf16 conv kernel reads
-    its inputs with 16-byte ``cp.async`` copies."""
+    16-byte boundary (a view at an odd offset): the bf16 conv kernels read
+    their inputs by TMA (a 16-byte aligned base) and 16-byte copies."""
     return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
 

@@ -5,8 +5,9 @@ Kernel: ``csrc/styled_conv.cu``, replacing the TPU kernel
 ``tpufusion/ops/styled_conv.py::_pallas_styled_conv`` (``_kernel``). The
 kernel reads x once and writes y once: modulation happens on the staged
 input, demodulation, bias, noise and the activation before the store.
-bfloat16 runs on the tensor cores (an implicit GEMM), float32 on the CUDA
-cores. The rounding points are the TPU kernel's: the modulated input
+bfloat16 runs on the tensor cores (an implicit GEMM on wgmma with TMA
+copies, ``csrc/conv3x3_wgmma.cuh``, shared with the conv3x3 forward),
+float32 on the CUDA cores. The rounding points are the TPU kernel's: the modulated input
 ``x * bf16(s)`` is rounded to the activation dtype, the conv is summed in
 float32, and the epilogue rounds once. Its bounds on an H100 are in the
 source note; at C >= 128 it is operations-bound, at C = 32 / 1024^2
@@ -33,7 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from tpufusion_torch.ops import _lib
+from tpufusion_torch.ops import _lib, conv3x3
 from tpufusion_torch.ops.modconv import modulated_conv2d
 
 SQRT2 = math.sqrt(2.0)
@@ -77,14 +78,23 @@ def supported(x_shape, w_shape, noise_shape) -> bool:
             and tuple(noise_shape) == (1, h, w, 1))
 
 
-def styled_conv_kernel(x, weight, style, noise, noise_strength, bias):
-    """Launch the fused kernel. The wrapper scales the weights and computes
-    sigma (float32) and the pre-scaled noise plane, as
-    ``_pallas_styled_conv`` does around its kernel."""
-    fn = _lib.load("styled_conv").tf_styled_conv_fwd
-    if not x.is_cuda or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("styled_conv: x must be a contiguous (N,H,W,C) CUDA tensor")
-    if not supported(x.shape, weight.shape, noise.shape):
+def _check_cuda(x, **others):
+    if not x.is_cuda:
+        raise ValueError(f"styled_conv: x must be a CUDA tensor, got {x.device}")
+    for name, t in others.items():
+        if t.device != x.device:
+            raise ValueError(f"styled_conv: {name} is on {t.device}, x on {x.device}")
+
+
+def styled_conv_launcher(x, weight, style, noise, noise_strength, bias):
+    """Check the inputs, prepare what the kernel reads and return its launch
+    (``launch() -> y``, one kernel, y allocated anew). The preparation is
+    ``_pallas_styled_conv``'s around its kernel: the scaled weights (bf16:
+    packed for the tile class, ``conv3x3.mma_class``), sigma in float32 and
+    the pre-scaled noise plane. Every check runs before the library is
+    built or loaded. ``styled_conv_kernel`` calls the launch once;
+    ``chip_smoke.py`` times it apart from the preparation."""
+    if x.dim() != 4 or not supported(x.shape, weight.shape, noise.shape):
         raise ValueError(f"styled_conv: unsupported shapes x {tuple(x.shape)}, "
                          f"w {tuple(weight.shape)}, noise {tuple(noise.shape)}")
     n, h, w, cin = x.shape
@@ -94,26 +104,43 @@ def styled_conv_kernel(x, weight, style, noise, noise_strength, bias):
         raise ValueError(f"styled_conv: style {tuple(style.shape)} / bias "
                          f"{tuple(bias.shape)} / noise_strength "
                          f"{tuple(noise_strength.shape)} do not match x and w")
-    for name, t in (("weight", weight), ("style", style), ("noise", noise),
-                    ("noise_strength", noise_strength), ("bias", bias)):
-        if t.device != x.device:
-            raise ValueError(f"styled_conv: {name} is on {t.device}, x on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("styled_conv: x must be contiguous (N,H,W,C)")
+    _check_cuda(x, weight=weight, style=style, noise=noise, noise_strength=noise_strength,
+                bias=bias)
     code = _lib.dtype_code(x)
+    fn = _lib.load("styled_conv").tf_styled_conv_fwd
     # few device ops here: at the 4^2-32^2 planes the host's time per op,
     # not the kernel, sets the call's time
     ws = weight.float() * (1.0 / math.sqrt(9 * cin))
-    w_s = ws.to(x.dtype).contiguous()
     sigma = torch.rsqrt(style.float().square() @ ws.square().sum(dim=(0, 1)) + 1e-8)
     noise2d = (noise_strength.float() * noise.reshape(h, w).float()).contiguous()
     # float32 style (the bf16 kernel rounds it to bf16) and bias
     s32, b = style.float().contiguous(), bias.float().contiguous()
+    cls = 0
     if x.dtype == torch.bfloat16:
+        # the TMA reads x from a 16-byte aligned base; its NHWC strides are
+        # Cin * 2 bytes, a multiple of 16 (``supported``)
         x, s32, b = (_lib.aligned16(t) for t in (x, s32, b))
-    y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
-    _lib.launch(fn, x, "styled_conv",
-                *[t.data_ptr() for t in (x, w_s, y, s32, sigma.contiguous(), b, noise2d)],
-                n, h, w, cin, cout, code)
-    return y
+        picked = conv3x3.mma_class(n, h, w, cin, cout)
+        w_k, cls = conv3x3.pack_mma_weights(ws, picked, x.dtype), picked.code
+    else:
+        w_k = ws.contiguous()  # HWIO; a module's weight may be a permuted view
+    bufs = (x, w_k, s32, sigma.contiguous(), b, noise2d)
+    x_p, w_p, *rest = (t.data_ptr() for t in bufs)
+
+    def launch():
+        y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
+        _lib.launch(fn, x, "styled_conv", x_p, w_p, y.data_ptr(), *rest,
+                    n, h, w, cin, cout, code, cls)
+        return y
+    launch.buffers = bufs  # alive as long as the launch: the pointers name them
+    return launch
+
+
+def styled_conv_kernel(x, weight, style, noise, noise_strength, bias):
+    """Launch the fused kernel once (``styled_conv_launcher``)."""
+    return styled_conv_launcher(x, weight, style, noise, noise_strength, bias)()
 
 
 # ``tpufusion::styled_conv``: the kernel as a PyTorch operator, so that
