@@ -10,9 +10,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. build: the CUDA sources under ``tpufusion_torch/csrc`` compile into
    ``build/tpufusion_torch`` (one nvcc per source, in parallel); the conv
    kernels' registers and spills, from ptxas, and any wgmma serialization
-   ptxas reports; the SASS gate (``cuobjdump -sass``): every bf16 forward
-   kernel (``conv3x3_wgmma_kernel``, each tile class) issues HGMMA and
-   UTMALDG and no HMMA;
+   ptxas reports; the SASS gate (``cuobjdump -sass``): every bf16 conv
+   kernel (the forward's ``conv3x3_wgmma_kernel``, each tile class, and the
+   weight grad's ``conv3x3_wgrad_wgmma_kernel``, each channel count) issues
+   HGMMA and UTMALDG and no HMMA;
 3. kernels against their plain PyTorch versions on the card, at the shapes
    of the main paths (fusion PGD, batch 1 synthesis; white-box, batch 5;
    spatial fusion: batch 1 in the attack, batch 6 in the partial-fusion
@@ -29,16 +30,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    held bit-equal; the weight grad
    also at tiny and ragged planes where the border is a large share of the
    sum, to its own 1e-3 limit, with two launches giving the same bits;
-   the bf16 conv kernels (styled_conv, conv3x3 forward and input grad) are
-   timed by CUDA-graph replay, all device ms: the kernel alone (its launch
-   prepared first, ``*_launcher``) on a cold L2 (launches rotating over
-   copies of the input, each with its own packed weights) and warm; the
+   the bf16 conv kernels (styled_conv, conv3x3 forward, input grad and
+   weight grad) are timed by CUDA-graph replay, all device ms: the kernel
+   alone (its launch prepared first, ``*_launcher``; the weight grad's with
+   its second pass) on a cold L2 (launches rotating over copies of the
+   inputs, the forward's each with its own packed weights) and warm; the
    wrapper (weight packing, and styled_conv's scale, sigma and noise plane)
    cold and warm (``graph_ms``, phase 3's reading before the Hopper
-   redesign), with its host us a call; the plain twin and the yardsticks
-   cold: cuDNN's conv core beside styled_conv (``conv_core_library_ms``),
-   ``F.conv2d`` / ``conv2d_input`` beside conv3x3; each record names its
-   tile class (``mma_class``);
+   redesign), with its host us a call; the plain twin (the weight grad's
+   by ``time_ms``) and the yardsticks cold: cuDNN's conv core beside
+   styled_conv (``conv_core_library_ms``), ``F.conv2d`` / ``conv2d_input``
+   / ``conv2d_weight`` beside conv3x3; each record names its tile class
+   (``mma_class``);
    pgd_update and fused_adam are held bit-exact also on views 4 bytes off
    a 16-byte boundary (all streams, and one stream alone), and timed three
    ways at every timed shape: the device ms a launch with the card never
@@ -413,8 +416,11 @@ CONV_RAGGED = [(2, 37, 53, 64), (1, 33, 70, 32), (3, 1, 2, 32), (2, 3, 1, 64), (
 VIEW_OFF = {"styled": (3, 19, 35, 32, 32), "conv": (2, 37, 53, 64)}
 # weight grad only, untimed: planes where the zero border and the partial
 # tiles are a large share of the sum (a single pixel: 8 of 9 taps read only
-# padding; a plane narrower than a k-step; one row and column past a tile)
-WGRAD_RAGGED = [(1, 1, 1, 32), (1, 3, 37, 64), (2, 17, 16, 32), (3, 37, 53, 64)]
+# padding; a plane narrower than a k-step; one row and column past a tile;
+# ragged tiles of each class several tiles each way; the tests hold that
+# these reach every class of ops/conv3x3.py::WGRAD_CLASSES and its edges)
+WGRAD_RAGGED = [(1, 1, 1, 32), (1, 3, 37, 64), (2, 17, 16, 32), (3, 37, 53, 64),
+                (2, 33, 70, 32)]
 # the white-box batch, the legacy optimize's one image (phase 5d), CW's
 # batch of 8 (phase 5e) and phase 5h's white-box and CW batches
 ADAM_SHAPES = {(5, 1024, 1024, 3): "whitebox", (1, 1024, 1024, 3): "patch",
@@ -484,15 +490,16 @@ def pixel_timings(torch, call, tensors, bound):
                 bound_share=bound / statistics.median(cold))
 
 
-def cold_launch_ms(torch, make, x, out_bytes):
+def cold_launch_ms(torch, make, tensors, out_bytes):
     """Device ms of a prepared kernel launch on a cold L2, as a step finds
-    its activations and weights: ``make(x_copy)`` prepares one launch (its
-    weights packed anew, so they are cold too) for each of as many copies
-    of ``x`` as ``cold_ms`` would rotate over, and the launches rotate
-    inside one CUDA graph. Sorted, one a replay."""
-    set_bytes = x.numel() * x.element_size() + out_bytes
+    its activations and weights: ``make(*copies)`` prepares one launch (the
+    forward's weights packed anew, so they are cold too) for each of as
+    many copies of ``tensors`` as ``cold_ms`` would rotate over, and the
+    launches rotate inside one CUDA graph. Sorted, one a replay."""
+    set_bytes = sum(t.numel() * t.element_size() for t in tensors) + out_bytes
     copies = max(2, min(GRAPH_LAUNCHES, -(-COLD_BYTES // set_bytes) + 1))
-    launches = [make(x)] + [make(x.clone()) for _ in range(copies - 1)]
+    launches = [make(*tensors)] + [make(*(t.clone() for t in tensors))
+                                   for _ in range(copies - 1)]
     turn = [0]
 
     def rotating():
@@ -511,17 +518,18 @@ def conv_timings(torch, launcher, wrapper, plain, tensors, out_bytes, library=No
     path pays at every call, cold and warm (``graph_ms``, phase 3's reading
     before these kernels) and its host us a call; the plain twin and the
     yardsticks (``library`` / ``core``: a function and its tensors) cold.
-    Every cold reading rotates over copies of all its inputs."""
-    x, rest = tensors[0], tensors[1:]
-    kernel = cold_launch_ms(torch, lambda xc: launcher(xc, *rest), x, out_bytes)
+    Every cold reading rotates over copies of all its inputs. ``plain=None``
+    leaves the plain twin to the caller."""
+    kernel = cold_launch_ms(torch, launcher, tensors, out_bytes)
     warm = graph_ms(torch, launcher(*tensors))
     host = host_us(torch, lambda: wrapper(*tensors))
     out = dict(ms=statistics.median(kernel), ms_range=[kernel[0], kernel[-1]],
                warm_ms=statistics.median(warm),
                wrapper_ms=statistics.median(cold_ms(torch, wrapper, list(tensors))),
                graph_ms=statistics.median(graph_ms(torch, lambda: wrapper(*tensors))),
-               host_us=statistics.median(host), host_us_range=[host[0], host[-1]],
-               plain_ms=statistics.median(cold_ms(torch, plain, list(tensors))))
+               host_us=statistics.median(host), host_us_range=[host[0], host[-1]])
+    if plain is not None:
+        out["plain_ms"] = statistics.median(cold_ms(torch, plain, list(tensors)))
     for key, yardstick in (("library_ms", library), ("conv_core_library_ms", core)):
         if yardstick is not None:
             out[key] = statistics.median(cold_ms(torch, *yardstick))
@@ -599,10 +607,13 @@ def check_kernels(torch, records, floor=None):
 
     def check_wgrad(x, g, case, timed, path):
         """The weight grad against its plain version; two launches on the
-        same inputs must give the same bits (no atomics, a fixed order)."""
+        same inputs must give the same bits (no atomics, a fixed order).
+        Timed bf16 cases read as the forward's (``conv_timings``): the
+        kernel alone and its second pass, cold and warm, the wrapper cold
+        and warm with its host us, ``conv2d_weight`` cold; the plain twin
+        (tens of ms at these shapes) by ``time_ms``."""
         n, h, wd, ch = x.shape
         dtype_name = str(x.dtype).removeprefix("torch.")
-        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
         dw = c3.conv3x3_weight_grad_kernel(x, g)
         again = c3.conv3x3_weight_grad_kernel(x, g)
         torch.cuda.synchronize()
@@ -610,15 +621,19 @@ def check_kernels(torch, records, floor=None):
             failures.append(f"conv3x3_wgrad {case} {dtype_name}: two launches on the same "
                             f"inputs differ by {(dw - again).abs().max().item():.3e}")
         err, rel = _err(torch, dw, c3.conv3x3_weight_grad_plain(x, g))
+        conv = None
+        if timed:
+            library = (lambda a, b: torch.nn.grad.conv2d_weight(a, (ch, ch, 3, 3), b, padding=1),
+                       [x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)])
+            conv = conv_timings(torch, c3.conv3x3_weight_grad_launcher,
+                                c3.conv3x3_weight_grad_kernel, None, (x, g), 9 * ch * ch * 4,
+                                library=library)
+            conv["plain_ms"] = time_ms(torch, lambda: c3.conv3x3_weight_grad_plain(x, g))
+        cls = c3.WGRAD_CLASSES[ch].name if dtype_name == "bfloat16" else None
         record("conv3x3_wgrad", case, dtype_name, err, rel,
-               *((time_ms(torch, lambda: c3.conv3x3_weight_grad_kernel(x, g)),
-                  time_ms(torch, lambda: c3.conv3x3_weight_grad_plain(x, g)),
-                  time_ms(torch, lambda: torch.nn.grad.conv2d_weight(
-                      xn, (ch, ch, 3, 3), gn, padding=1)))
-                 if timed else (None, None, None)),
                nbytes=2 * x.numel() * x.element_size() + 9 * ch * ch * 4,
-               ops=2 * 9 * ch * ch * n * h * wd, path=path,
-               fn=lambda: c3.conv3x3_weight_grad_kernel(x, g))
+               ops=2 * 9 * ch * ch * n * h * wd, path=path if conv else None, conv=conv,
+               extra_fields={"mma_class": cls} if cls else None)
 
     for dtype_name in ("float32", "bfloat16"):
         dt = getattr(torch, dtype_name)
@@ -856,16 +871,19 @@ def summarize(records, runs):
                 "replaces": replaces, **launches(keys), **numbers(keys, home)}
 
     pallas_conv = "tpufusion/ops/pallas_conv.py"
+    # each part: its records' kernel, the TPU kernel it replaces, its bf16
+    # CUDA kernel
     parts = {
-        "forward": ("conv3x3_fwd", f"{pallas_conv}:195"),
-        "input_grad": ("conv3x3_dgrad", f"{pallas_conv}:195"),
-        "weight_grad": ("conv3x3_wgrad", f"{pallas_conv}:284"),
+        "forward": ("conv3x3_fwd", f"{pallas_conv}:195", "conv3x3_wgmma_kernel"),
+        "input_grad": ("conv3x3_dgrad", f"{pallas_conv}:195", "conv3x3_wgmma_kernel"),
+        "weight_grad": ("conv3x3_wgrad", f"{pallas_conv}:284", "conv3x3_wgrad_wgmma_kernel"),
     }
     conv3x3 = entry("conv3x3", "conv3x3.cu", f"{pallas_conv}:195",
                     ("conv3x3_fwd", "conv3x3_dgrad"))
-    conv3x3["launches"] = sum(runs[p][0][k] for p in runs for k, _ in parts.values())
-    conv3x3["parts"] = {part: {"replaces": rep, **launches((k,)), **numbers((k,), "pgd")}
-                        for part, (k, rep) in parts.items()}
+    conv3x3["launches"] = sum(runs[p][0][k] for p in runs for k, _, _ in parts.values())
+    conv3x3["parts"] = {part: {"kernel": kern, "replaces": rep, **launches((k,)),
+                               **numbers((k,), "pgd")}
+                        for part, (k, rep, kern) in parts.items()}
     return [
         entry("styled_conv", "styled_conv.cu", "tpufusion/ops/styled_conv.py:139",
               ("styled_conv",)),
@@ -3385,7 +3403,7 @@ KERNEL_NAMES = (("conv3x3_wgmma_kernel<true", "styled_conv bf16"),
                 ("conv3x3_wgmma_kernel<false", "conv3x3_fwd/dgrad bf16"),
                 ("conv3x3_fwd_kernel<float, true>", "styled_conv fp32"),
                 ("conv3x3_fwd_kernel<float, false>", "conv3x3_fwd/dgrad fp32"),
-                ("conv3x3_wgrad_mma_kernel", "conv3x3_wgrad bf16"),
+                ("conv3x3_wgrad_wgmma_kernel", "conv3x3_wgrad bf16"),
                 ("conv3x3_wgrad_kernel", "conv3x3_wgrad fp32"),
                 ("sum_partials_kernel", "conv3x3_wgrad second pass"),
                 ("PgdOp", "pgd_update"),
@@ -3496,30 +3514,33 @@ def ptxas_summary(text: str):
     return rows
 
 
-# The bf16 forward kernels' SASS: Hopper's warpgroup MMA (HGMMA) and tensor
-# copies (UTMALDG) on every tile class, and no mma.sync (HMMA) left
+# The bf16 conv kernels' SASS: Hopper's warpgroup MMA (HGMMA) and tensor
+# copies (UTMALDG) in the forward (every tile class, both libraries) and the
+# weight grad (conv3x3's library), and no mma.sync (HMMA) left
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
+SASS_KERNELS = {"styled_conv": ("conv3x3_wgmma_kernel",),
+                "conv3x3": ("conv3x3_wgmma_kernel", "conv3x3_wgrad_wgmma_kernel")}
 
 
 def sass_counts(text: str):
-    """``{kernel: {op: count}}`` of the bf16 forward kernels
-    (``conv3x3_wgmma_kernel``, by mangled name) in ``cuobjdump -sass``
-    output, counting the ``SASS_OPS`` instructions."""
+    """``{kernel: {op: count}}`` of the bf16 conv kernels (the names of
+    ``SASS_KERNELS``, by mangled name) in ``cuobjdump -sass`` output,
+    counting the ``SASS_OPS`` instructions."""
+    names = {k for kernels in SASS_KERNELS.values() for k in kernels}
     out = {}
     for body in re.split(r"\n\s*Function : ", text)[1:]:
         name = body.split("\n", 1)[0].strip()
-        if "conv3x3_wgmma_kernel" in name:
+        if any(k in name for k in names):
             out[name] = {op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPS}
     return out
 
 
-def sass_failures(counts):
-    """What the forward kernels' SASS lacks: each must issue HGMMA and
-    UTMALDG and no HMMA."""
-    if not counts:
-        return ["no conv3x3_wgmma_kernel in the SASS"]
-    return [f"{name}: {c}" for name, c in counts.items()
-            if c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] != 0]
+def sass_failures(counts, expected=SASS_KERNELS["conv3x3"]):
+    """What the bf16 conv kernels' SASS lacks: each of ``expected`` must be
+    there, and each kernel must issue HGMMA and UTMALDG and no HMMA."""
+    missing = [f"no {k} in the SASS" for k in expected if not any(k in n for n in counts)]
+    return missing + [f"{name}: {c}" for name, c in counts.items()
+                      if c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] != 0]
 
 
 def check_sass(_lib):
@@ -3527,20 +3548,21 @@ def check_sass(_lib):
     (``cuobjdump`` beside ``nvcc``)."""
     cuobjdump = os.path.join(os.path.dirname(_lib.nvcc_path()), "cuobjdump")
     failures = []
-    for source in ("styled_conv", "conv3x3"):
+    for source, expected in SASS_KERNELS.items():
         out = subprocess.run([cuobjdump, "-sass", str(_lib.BUILD_DIR / f"lib{source}.so")],
                              capture_output=True, text=True, timeout=300)
         if out.returncode != 0:
             fail(f"cuobjdump -sass lib{source}.so failed: {out.stderr.strip()}")
         counts = sass_counts(out.stdout)
         for name, c in counts.items():
-            tile = re.search(r"WgTileI((?:L[ib]\d+E)+)", name)
-            args = ", ".join(re.findall(r"L[ib](\d+)E", tile.group(1))) if tile else "?"
-            log(f"  {source}.cu conv3x3_wgmma_kernel<WgTile<{args}>> SASS: "
+            kernel = next(k for k in expected if k in name)
+            tile = re.search(r"(WgTile|WgradTile)I((?:L[ib]\d+E)+)", name)
+            args = ", ".join(re.findall(r"L[ib](\d+)E", tile.group(2))) if tile else "?"
+            log(f"  {source}.cu {kernel}<{tile.group(1) if tile else '?'}<{args}>> SASS: "
                 + ", ".join(f"{op} {c[op]}" for op in SASS_OPS))
-        failures += [f"lib{source}.so {f}" for f in sass_failures(counts)]
+        failures += [f"lib{source}.so {f}" for f in sass_failures(counts, expected)]
     if failures:
-        fail("bf16 forward SASS without wgmma / TMA, or with mma.sync: " + "; ".join(failures))
+        fail("bf16 conv SASS without wgmma / TMA, or with mma.sync: " + "; ".join(failures))
 
 
 def main(argv=None) -> None:

@@ -48,9 +48,9 @@ def test_finite_output_is_held_to_tol(smoke):
 
 
 PTXAS = """\
-ptxas info    : Compiling entry function '_ZN2tf24conv3x3_wgrad_mma_kernelINS_9WgradTileILi64ELi8ELi32ELi8ELi2EEEEEvPK13__nv_bfloat16S5_Pfiii' for 'sm_90a'
+ptxas info    : Compiling entry function '_ZN2tf26conv3x3_wgrad_wgmma_kernelINS_9WgradTileILi64ELi16ELi3EEEEEv14CUtensorMap_stS3_Pfiii' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 235 registers, used 1 barriers
+ptxas info    : Used 128 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN2tf20conv3x3_wgrad_kernelIfEEvPKT_S3_Pfiiii' for 'sm_90a'
     16 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 95 registers, used 1 barriers, 42496 bytes smem
@@ -62,7 +62,7 @@ ptxas info    : Used 168 registers, used 1 barriers
 
 def test_ptxas_summary_names_the_tile_classes(smoke):
     assert smoke.ptxas_summary(PTXAS) == [
-        ("conv3x3_wgrad_mma_kernel<WgradTile<64, 8, 32, 8, 2>>", 235, 0),
+        ("conv3x3_wgrad_wgmma_kernel<WgradTile<64, 16, 3>>", 128, 0),
         ("conv3x3_wgrad_kernel<float>", 95, 20),
         ("conv3x3_wgmma_kernel<styled, WgTile<16, 16, 2, 1, 4, 32, 32, 8, 1, 1>>", 168, 0)]
 
@@ -73,31 +73,58 @@ SASS = """\
         /*0a10*/                   UTMALDG.4D [UR8], [UR4] ;
         /*0a20*/                   UBLKCP.S.G [UR8], [UR10], UR12 ;
         /*1d40*/                   HGMMA.64x32x16.F32.BF16 R56, R88, gdesc[UR4], R56 ;
-                Function : _ZN2tf24conv3x3_wgrad_mma_kernelINS_9WgradTileILi64ELi8ELi32ELi8ELi2EEEEEvPK13__nv_bfloat16S5_Pfiii
-        /*0200*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+                Function : _ZN2tf26conv3x3_wgrad_wgmma_kernelINS_9WgradTileILi64ELi16ELi3EEEEEv14CUtensorMap_stS3_Pfiii
+        /*0400*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0410*/                   UTMALDG.4D [UR12], [UR6] ;
+        /*1200*/                   HGMMA.64x64x16.F32.BF16 R24, R88, gdesc[UR4], R24 ;
+        /*1210*/                   HGMMA.64x64x16.F32.BF16 R56, R92, gdesc[UR4], R56 ;
+                Function : _ZN2tf20conv3x3_wgrad_kernelIfEEvPKT_S3_Pfiiii
+        /*0200*/                   FFMA R4, R8, R12, R4 ;
 """
 
 
 def test_sass_gate_reads_the_forward_kernels(smoke):
-    """Phase 2's SASS gate counts HGMMA, UTMALDG and HMMA in the bf16
-    forward kernels only (the weight grad stays on mma.sync), and fails one
-    without wgmma or TMA, or with mma.sync."""
+    """Phase 2's SASS gate counts HGMMA, UTMALDG and HMMA in the bf16 conv
+    kernels only (the float32 weight grad is not one), and fails a forward
+    kernel without wgmma or TMA, or with mma.sync."""
     counts = smoke.sass_counts(SASS)
-    assert list(counts.values()) == [{"HGMMA": 1, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 0}]
+    fwd, wgrad = counts
+    assert counts[fwd] == {"HGMMA": 1, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 0}
     assert smoke.sass_failures(counts) == []
-    name = next(iter(counts))
-    assert smoke.sass_failures({name: {"HGMMA": 0, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 0}})
-    assert smoke.sass_failures({name: {"HGMMA": 4, "UTMALDG": 0, "UBLKCP": 1, "HMMA": 0}})
-    assert smoke.sass_failures({name: {"HGMMA": 4, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 2}})
-    assert smoke.sass_failures({}) == ["no conv3x3_wgmma_kernel in the SASS"]
+    assert smoke.sass_failures({fwd: counts[fwd]}, smoke.SASS_KERNELS["styled_conv"]) == []
+    for bad in ({"HGMMA": 0, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 0},
+                {"HGMMA": 4, "UTMALDG": 0, "UBLKCP": 1, "HMMA": 0},
+                {"HGMMA": 4, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 2}):
+        assert smoke.sass_failures({**counts, fwd: bad}) == [f"{fwd}: {bad}"]
+    assert smoke.sass_failures({}, smoke.SASS_KERNELS["styled_conv"]) == [
+        "no conv3x3_wgmma_kernel in the SASS"]
+
+
+def test_sass_gate_reads_the_weight_grad_kernel(smoke):
+    """The gate holds conv3x3's library to a weight-grad kernel on wgmma and
+    TMA: real counts pass; one with HMMA, or without UTMALDG or HGMMA,
+    fails, and so does a library without it."""
+    counts = smoke.sass_counts(SASS)
+    fwd, wgrad = counts
+    assert "conv3x3_wgrad_wgmma_kernel" in wgrad
+    assert counts[wgrad] == {"HGMMA": 2, "UTMALDG": 2, "UBLKCP": 0, "HMMA": 0}
+    assert smoke.sass_failures(counts, smoke.SASS_KERNELS["conv3x3"]) == []
+    for bad in ({"HGMMA": 2, "UTMALDG": 2, "UBLKCP": 0, "HMMA": 18},
+                {"HGMMA": 2, "UTMALDG": 0, "UBLKCP": 0, "HMMA": 0},
+                {"HGMMA": 0, "UTMALDG": 2, "UBLKCP": 0, "HMMA": 0}):
+        assert smoke.sass_failures({**counts, wgrad: bad}) == [f"{wgrad}: {bad}"]
+    assert smoke.sass_failures({fwd: counts[fwd]}) == [
+        "no conv3x3_wgrad_wgmma_kernel in the SASS"]
+    assert smoke.sass_failures({}) == ["no conv3x3_wgmma_kernel in the SASS",
+                                       "no conv3x3_wgrad_wgmma_kernel in the SASS"]
 
 
 def test_profiler_groups_keep_the_weight_grad_kernels_apart(smoke):
     def group(key):
         return next((g for pat, g in smoke.KERNEL_NAMES if pat in key), "other kernels")
 
-    assert group("void tf::conv3x3_wgrad_mma_kernel<tf::WgradTile<32, 16, 32, 8, 2> >("
-                 "__nv_bfloat16 const*, ...)") == "conv3x3_wgrad bf16"
+    assert group("void tf::conv3x3_wgrad_wgmma_kernel<tf::WgradTile<32, 16, 5> >("
+                 "CUtensorMap_st, CUtensorMap_st, float*, int, int, int)") == "conv3x3_wgrad bf16"
     assert group("void tf::conv3x3_wgrad_kernel<float>(float const*, ...)") == \
         "conv3x3_wgrad fp32"
     assert group("tf::sum_partials_kernel(float const*, float*, int, int)") == \

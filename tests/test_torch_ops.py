@@ -365,6 +365,42 @@ def test_mma_classes_mirror_the_header():
         assert cls.smem_bytes(64) <= c3.MMA_SMEM_MAX
 
 
+
+def test_wgrad_classes_mirror_the_header():
+    """``WGRAD_CLASSES`` holds the bf16 weight grad's tile classes
+    (``using Wgrad<C> = WgradTile<C, TH, STAGES>`` in csrc/conv3x3_wgrad.cuh)
+    field for field, each under the channel count ``tf_conv3x3_wgrad``
+    dispatches to it, and each ring fits a block's shared memory."""
+    import re
+    header = (_lib.CSRC / "conv3x3_wgrad.cuh").read_text()
+    tiles = {int(m.group(1)): tuple(int(a) for a in m.group(2).split(","))
+             for m in re.finditer(r"using Wgrad(\d+) = WgradTile<([^>]*)>;", header)}
+    entry = (_lib.CSRC / "conv3x3.cu").read_text()
+    dispatch = {int(c): int(name) for c, name in re.findall(
+        r"if \(C == (\d+)\) return tf::launch_wgrad_wgmma<tf::Wgrad(\d+)>", entry)}
+    assert set(tiles) == set(c3.WGRAD_CLASSES) == set(c3.CHANNELS)
+    assert dispatch == {c: c for c in c3.CHANNELS}
+    for c, cls in c3.WGRAD_CLASSES.items():
+        assert tiles[c] == (cls.c, cls.th, cls.stages) and cls.name == f"wgrad{c}"
+        assert cls.smem_bytes() <= c3.MMA_SMEM_MAX
+
+
+def test_phase3_wgrad_ragged_cases_reach_every_class_and_tile_edge():
+    """``chip_smoke.py`` phase 3's weight-grad cases put each tile class on
+    planes whose height and width are not multiples of its tile, both on a
+    plane of several tiles each way and on one smaller than a tile (the
+    TMA boxes mostly outside the tensor), and on a batch whose tiles run
+    across images; a single pixel is among them (8 of 9 taps read only
+    padding)."""
+    smoke = _chip_smoke()
+    for c, cls in c3.WGRAD_CLASSES.items():
+        mine = [(n, h, w) for n, h, w, ch in smoke.WGRAD_RAGGED if ch == c]
+        assert any(h % cls.th and w % cls.tw and h > cls.th and w > cls.tw
+                   for _, h, w in mine), cls.name
+        assert any(h < cls.th or w < cls.tw for _, h, w in mine), cls.name
+        assert any(n > 1 and (h % cls.th or w % cls.tw) for n, h, w in mine), cls.name
+    assert (1, 1, 1, 32) in smoke.WGRAD_RAGGED
+
 # the class of every styled_conv plane on the main paths (PERF.md section 6):
 # FFHQ's synthesis at batch 1 (PGD), 5 (white-box) and 6 (the partial
 # evaluation), car's at 4 and church's at 3; conv3x3's planes

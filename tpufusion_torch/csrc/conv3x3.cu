@@ -21,17 +21,17 @@
 // the kernel alone): forward and input grad 74-81% of the bound at c32,
 // 59-61% at 4-5 x 512^2 c64 (car's 4 x 512^2: 0.133-0.134 ms against
 // F.conv2d's 0.173), 54% at 1 x 512^2 c64 (PERF.md). The bf16 weight grad
-// (conv3x3_wgrad_mma_kernel) is a tensor-core GEMM over pixels on mma.sync:
-// per tap a C x C product with K = pixels, both operands read from the
-// staged [pixel][channel] tiles with ldmatrix.trans, one block summing all
-// 9 x C x C outputs so that x and g are read once; at C = 32 the bytes
-// bound it (127 FLOP per byte moved), at C = 64 the tensor cores' fragment
-// loads do. Blocks write partials that a second pass adds in a fixed order.
+// runs on conv3x3_wgrad_wgmma_kernel (conv3x3_wgrad.cuh): a GEMM over pixels,
+// M = (tap, ci), N = co, K = 16 pixels of a tile row; the haloed x tile and
+// the g tile streamed once by TMA into a ring of mbarrier stages, A (x) from
+// ldmatrix.trans at tap-shifted pixels, B (g) MN-major by descriptor, one
+// consumer warpgroup per kx; blocks write partials that a second pass adds
+// in a fixed order.
 // float32 runs the CUDA-core kernels, which keep exact float32 products.
 // The 128-lane width packing of the TPU kernels (pack_weights / unpack_dw)
 // is not carried over (it existed to fill the TPU's 128-lane matrix unit).
-// See conv3x3_common.cuh and conv3x3_wgmma.cuh for the tiling.
-#include "conv3x3_wgmma.cuh"
+// See conv3x3_common.cuh, conv3x3_wgmma.cuh and conv3x3_wgrad.cuh.
+#include "conv3x3_wgrad.cuh"
 
 // w: HWIO weights (dtype 0: float32), else bf16 weights packed for tile
 // class `cls` (ops/conv3x3.py::pack_mma_weights)
@@ -54,8 +54,8 @@ extern "C" int tf_conv3x3_wgrad(const void* x, const void* g, void* partial, voi
   float* part = static_cast<float*>(partial);
   float* dw = static_cast<float*>(out);
   if (dtype != 0) {
-    if (C == 32) return tf::launch_wgrad_mma<tf::Wgrad32>(x, g, part, dw, N, H, W, max_blocks, s);
-    if (C == 64) return tf::launch_wgrad_mma<tf::Wgrad64>(x, g, part, dw, N, H, W, max_blocks, s);
+    if (C == 32) return tf::launch_wgrad_wgmma<tf::Wgrad32>(x, g, part, dw, N, H, W, max_blocks, s);
+    if (C == 64) return tf::launch_wgrad_wgmma<tf::Wgrad64>(x, g, part, dw, N, H, W, max_blocks, s);
     return (int)cudaErrorInvalidValue;
   }
   const long long tiles = (long long)N * ((H + tf::WT_H - 1) / tf::WT_H) *

@@ -7,10 +7,10 @@ are hand-written kernels (``csrc/conv3x3.cu``), replacing
 ``pallas_conv.py::_conv3x3_wp_fwd_impl`` (forward and input grad) and
 ``::_conv3x3_wp_dw_impl`` (weight grad). On an H100 these convs are bound by
 the bytes they move (see the source note in ``csrc/conv3x3.cu``). In
-bfloat16 all three run on the tensor cores (forward and input grad on
-wgmma, ``conv3x3_wgmma_kernel``; the weight grad as a GEMM over pixels on
-mma.sync, ``conv3x3_wgrad_mma_kernel``); float32 runs CUDA-core kernels that
-keep exact float32 products. The TPU's 128-lane width packing
+bfloat16 all three run on wgmma and TMA (forward and input grad on
+``conv3x3_wgmma_kernel``; the weight grad, a GEMM over pixels, on
+``conv3x3_wgrad_wgmma_kernel``); float32 runs CUDA-core kernels that keep
+exact float32 products. The TPU's 128-lane width packing
 (``pack_weights``/``unpack_dw``) is not ported: it existed for the TPU's
 matrix unit.
 
@@ -29,7 +29,8 @@ tile classes of ``csrc/conv3x3_wgmma.cuh``: ``MMA_CLASSES`` mirrors that
 table, ``mma_class`` picks one from the shapes, and ``pack_mma_weights``
 lays the weights out for it (wgmma's K-major B layout, one block per
 chunk, tap and k-step). The choice and the packing are plain Python, so
-the CPU tests reach them.
+the CPU tests reach them. ``WGRAD_CLASSES`` mirrors the bf16 weight grad's
+tile classes (``csrc/conv3x3_wgrad.cuh``), one per channel count.
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ import torch.nn.functional as F
 from tpufusion_torch.ops import _lib
 
 CHANNELS = (32, 64)
-# weight-grad blocks (one partial sum each) per SM: the bf16 kernel's shared
-# memory and registers leave room for one, the float32 kernel runs two
+# weight-grad blocks (one partial sum each) per SM: the bf16 kernel's ring
+# and its four warpgroups fill an SM, the float32 kernel runs two
 WGRAD_BLOCKS_PER_SM = {torch.bfloat16: 1, torch.float32: 2}
 
 
@@ -169,6 +170,36 @@ def pack_mma_weights(w: torch.Tensor, cls: MmaClass, dtype=torch.bfloat16) -> to
                                               copy=True)
 
 
+@dataclasses.dataclass(frozen=True)
+class WgradClass:
+    """One tile class of the bf16 weight grad, ``WgradTile<C, TH, STAGES>``
+    in ``csrc/conv3x3_wgrad.cuh``: C channels, TH x 16 pixel tiles, a ring
+    of ``stages`` (haloed x tile, g tile) slots, one block a SM."""
+
+    name: str
+    c: int
+    th: int
+    stages: int
+    tw = 16
+
+    def smem_bytes(self) -> int:
+        """``WgradTile::SMEM``: the alignment slack, the ring of aligned
+        slots (x box, then g box) and the barriers."""
+        def up(b):
+            return -(-b // 1024) * 1024
+        x_box = (self.th + 2) * (self.tw + 2) * self.c * 2
+        stage = up(up(x_box) + self.th * self.tw * self.c * 2)
+        return 1024 + self.stages * stage + 2 * self.stages * 8
+
+    def tiles(self, n: int, h: int, w: int) -> int:
+        """The pixel tiles of x (n, h, w, C): the most blocks a launch takes."""
+        return n * -(-h // self.th) * -(-w // self.tw)
+
+
+#                   name      C  TH stages
+WGRAD_CLASSES = {32: WgradClass("wgrad32", 32, 32, 2), 64: WgradClass("wgrad64", 64, 16, 3)}
+
+
 def _check_cuda(what, a, b, names="x and w"):
     if not a.is_cuda or not b.is_cuda or a.device != b.device:
         raise ValueError(f"{what}: {names} must be on one CUDA device")
@@ -241,10 +272,12 @@ def conv3x3_input_grad_kernel(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return conv3x3_input_grad_launcher(g, w)()
 
 
-def conv3x3_weight_grad_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Launch the weight-grad kernel: dw (3, 3, C, C) float32 summed over
-    the batch and every pixel (bf16: tensor cores; float32: CUDA cores).
-    The same inputs give the same bits on every launch."""
+def conv3x3_weight_grad_launcher(x: torch.Tensor, g: torch.Tensor):
+    """Check x and g and return the weight-grad kernel's launch (``launch()
+    -> dw``, the kernel and its second pass): what
+    ``conv3x3_weight_grad_kernel`` calls once, and what ``chip_smoke.py``
+    times apart from the checks. Nothing is built or loaded before the
+    checks have passed."""
     c = x.shape[-1]
     if x.dim() != 4 or c not in CHANNELS:
         raise ValueError(f"conv3x3 wgrad: takes (N,H,W,C) with C in {CHANNELS}, "
@@ -259,16 +292,30 @@ def conv3x3_weight_grad_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor
             raise ValueError(f"conv3x3 wgrad: {name} must be contiguous")
     _check_cuda("conv3x3 wgrad", x, g, "x and g")
     fn = _lib.load("conv3x3").tf_conv3x3_wgrad
-    if x.dtype == torch.bfloat16:
-        x, g = _lib.aligned16(x), _lib.aligned16(g)
     n, h, wd, _ = x.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     nblocks = WGRAD_BLOCKS_PER_SM[x.dtype] * sms  # the most the kernel launches
-    partial = torch.empty((nblocks, 3, 3, c, c), dtype=torch.float32, device=x.device)
-    dw = torch.empty((3, 3, c, c), dtype=torch.float32, device=x.device)
-    _lib.launch(fn, x, "conv3x3 weight grad", x.data_ptr(), g.data_ptr(),
-                partial.data_ptr(), dw.data_ptr(), n, h, wd, c, nblocks, _lib.dtype_code(x))
-    return dw
+    if x.dtype == torch.bfloat16:
+        # the TMA reads x and g from 16-byte aligned bases; a block (and its
+        # partial) a tile at most
+        x, g = _lib.aligned16(x), _lib.aligned16(g)
+        nblocks = min(nblocks, WGRAD_CLASSES[c].tiles(n, h, wd))
+    code = _lib.dtype_code(x)
+
+    def launch():
+        partial = torch.empty((nblocks, 3, 3, c, c), dtype=torch.float32, device=x.device)
+        dw = torch.empty((3, 3, c, c), dtype=torch.float32, device=x.device)
+        _lib.launch(fn, x, "conv3x3 weight grad", x.data_ptr(), g.data_ptr(),
+                    partial.data_ptr(), dw.data_ptr(), n, h, wd, c, nblocks, code)
+        return dw
+    return launch
+
+
+def conv3x3_weight_grad_kernel(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Launch the weight-grad kernel: dw (3, 3, C, C) float32 summed over
+    the batch and every pixel (bf16: wgmma; float32: CUDA cores). The same
+    inputs give the same bits on every launch."""
+    return conv3x3_weight_grad_launcher(x, g)()
 
 
 class _Conv3x3(torch.autograd.Function):
