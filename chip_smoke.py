@@ -76,11 +76,32 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5. the fusion main path at full width: the FFHQ 1024^2 config-f generator +
    e4e IR-SE-50 + VGG16 pipeline (seeded random weights), one fused-image
    forward, FGSM, and PGD with the default eps/alpha for 5 steps after a
-   warm-up, with every kernel's launch count read around that run;
+   warm-up, with every kernel's launch count read around that run. An
+   attack's step runs on its program (``tpufusion_torch/core/graphs.py``):
+   the first step eager, then the capture, every later step a CUDA graph
+   replay. From phase 5 on, the first replay of every program runs under
+   torch.profiler and each wrapper's kernel rows must equal the launches
+   that the program adds to the counts at a replay (``LaunchAudit``); the
+   counts of every counted run read each replay at its measured counts.
+   The PGD attack is called twice from one start: the first call timed on
+   its new program (``first_call_ms``, its ``capture_ms`` apart), the
+   second timed over replays (``pgd_step_ms``), beside the host us of one
+   replay, the peak memory and each kernel's launches a replay. Outside the
+   counted run the same attack object is called again with deterministic
+   algorithms required (its cache keys on the flags, so it captures anew):
+   its replays are timed and held bit for bit to the eager twin
+   (``attacks/pgd.py::pgd_eager``, timed too) from the same start, and a
+   replay must launch each kernel as often as an eager step. Under the
+   default flags no hold can be bit for bit: two eager runs part. 5b, 5c,
+   5e and 5h time and hold their attacks the same way (classifier PGD and
+   CW within 1e-6; ViT PGD is timed, not held), and free each attack's
+   graphs before the next phase;
 5b. the white-box main path at full width on the same pipeline
    (``configs/ffhq_whitebox.json``: N = 5 inputs all attacked toward one
    target, PRESET_ATTACK_MAIN, lr 1e-4): one warm-up iteration, then a
-   5-iteration ``run_whitebox`` with the launch counts read around it;
+   5-iteration ``run_whitebox`` and its per-image attack timed over
+   replays, with the launch counts read around them, then the graph held to
+   ``whitebox.run_eager``;
 5c. the spatial-fusion main path at full width on the same pipeline
    (BASELINE config 3: N = 5 role inputs, VGG objective, default eps and
    alpha): three fused forwards, FGSM and 5 PGD steps, then the
@@ -104,10 +125,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    fusions; a config-f 1024^2 discriminator scoring the clean and
    adversarial fusions; the launch counts read around it all;
 6. device time by kernel for one PGD step, one white-box step (6b), one
-   spatial PGD step (6c), one patch batch (6d) and one classifier PGD
-   step, CW step, ViT PGD step and realism batch (6e), from torch.profiler,
-   with the step's kernel launches; 6c also times one full-width blender
-   forward + backward;
+   spatial PGD step (6c) (each one graph replay), one patch batch (6d) and
+   one classifier PGD step, CW step, ViT PGD step (graphed attacks) and
+   realism batch (6e), from torch.profiler, with the step's kernel
+   launches and the idle share against the step's unprofiled ms; 6c also
+   times one full-width blender forward + backward; 5h profiles each
+   family's arithmetic PGD, spatial PGD and white-box replay the same way;
 5f. the attack_run CLI at full width (run after 6-6e and 3b, so that
    every earlier number reads as before): 5 synthetic 1024^2 faces written
    as PNGs; the packaged landmark net on the card held to the CPU within
@@ -127,9 +150,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    deterministic algorithms required, each single-device route (outside
    the counted runs), then each sharded route, held bit-equal to it (the
    patch, to the step written out, within 1e-5 + 1e-4 of its largest
-   value; CW, whose antialiased resize has no deterministic backward,
-   within 1e-6), then each single-device route again, timed against the
-   sharded one: ``run_whitebox_sharded`` (N = 5, 2 iterations),
+   value; CW within 1e-6), then each sharded and each single-device route again,
+   timed against each other (the counted run profiles its programs' first
+   replays, so it is not timed): ``run_whitebox_sharded`` (N = 5, 2 iterations),
    ``run_pgd_sharded`` (the runner's PGD, N = 5, 2 steps, one explicit
    start), ``run_cw_sharded`` (resnet18, 8 x 1024^2, 5 steps),
    ``train_patch_sharded`` (1 epoch, 2 images, max_count 2), the group
@@ -168,6 +191,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 Per-shape kernel numbers also go to ``runs/chip_smoke/chip_smoke_kernels.json``.
 ``python3 chip_smoke.py --kernels-only`` runs phases 1-3 alone, writes that
 file and prints no result line: the quick reading of the kernels.
+``python3 chip_smoke.py --first-calls`` builds the kernels, then times each
+attack the runner dispatches at its config's step count on a new attack
+object, a second call and the eager twin (``run_first_calls``), writes
+``runs/chip_smoke/first_calls.json`` and prints no result line.
 This script imports nothing of JAX or of the JAX package ``tpufusion``.
 """
 
@@ -753,6 +780,8 @@ def check_kernels(torch, records, floor=None):
     for shape, path in ADAM_SHAPES.items():
         for count in (1, 50):
             bc1, bc2 = au.bias_corrections(count)
+            # the kernel reads them from the device's table, row count - 1
+            table, step = au.bias_table("cuda"), au.step_index("cuda", count - 1)
             state = [rn(*shape, dtype=torch.float32) for _ in range(4)]
             state[2] *= 0.1
             state[3] = state[3].square() * 0.01
@@ -761,7 +790,7 @@ def check_kernels(torch, records, floor=None):
                                 for i, t in enumerate(state))
                 want = au.adam_update_plain(x.clone(), g, mu.clone(), nu.clone(), 1e-4,
                                             bc1, bc2)
-                au.adam_update_kernel(x, g, mu, nu, 1e-4, bc1, bc2)
+                au.adam_update_kernel(x, g, mu, nu, 1e-4, table, step)
                 torch.cuda.synchronize()
                 err = max(_err(torch, a, b)[0] for a, b in zip((x, mu, nu), want))
                 timed = path is not None and count == 1 and not suffix
@@ -771,10 +800,12 @@ def check_kernels(torch, records, floor=None):
                        plain=time_ms(torch, lambda: au.adam_update_plain(
                            x, g, mu, nu, 1e-4, bc1, bc2)) if timed else None,
                        lib=_torch_adam_ms(torch, x, g) if timed else None,
-                       nbytes=7 * numel * 4, ops=12 * numel, path=path if timed else None,
+                       nbytes=7 * numel * 4 + 12, ops=12 * numel,
+                       path=path if timed else None,
                        pixel=pixel_timings(
-                           torch, lambda *t: au.adam_update_kernel(*t, 1e-4, bc1, bc2),
-                           (x, g, mu, nu), bound_ms(7 * numel * 4, 12 * numel, "float32")[0])
+                           torch, lambda *t: au.adam_update_kernel(*t, 1e-4, table, step),
+                           (x, g, mu, nu),
+                           bound_ms(7 * numel * 4 + 12, 12 * numel, "float32")[0])
                        if timed else None)
     torch.backends.cudnn.allow_tf32 = True
     if failures:
@@ -840,7 +871,8 @@ def summarize(records, runs):
     step counts are an arithmetic PGD step's) to its (launch counts,
     launches per step; per
     inner step on the patch path; None for a run that has no one step);
-    ``launches`` is their sum. The numbers at the top of an entry are those of the kernel's
+    ``launches`` is their sum, each graph replay at its measured counts
+    (``LaunchAudit``). The numbers at the top of an entry are those of the kernel's
     home path (the fusion PGD path, or the white-box path for fused_adam);
     another path's shapes, where it has its own, are under its name (the
     spatial path's batch-1 synthesis shares the PGD path's shapes). conv3x3's entry
@@ -1278,6 +1310,473 @@ def _legacy_first_grad(torch, pipe, lp, variant, img, t):
 
 
 # ---------------------------------------------------------------------------
+# the attack loops' step programs: graph replays against the eager twins
+# ---------------------------------------------------------------------------
+
+# Every attack step runs on its program (tpufusion_torch/core/graphs.py):
+# its first step eager, every later one a CUDA graph replay. With
+# deterministic algorithms required, the graph and its eager twin
+# (pgd_eager, whitebox.run_eager, cw_eager) from the same start give the
+# same bits: the fusion PGD and white-box steps are held bit-equal. Under
+# the default flags two eager runs of 100 PGD steps already differ by up
+# to 2 eps (a sign step flipped by the atomics, the runs parting after it).
+# Classifier PGD and CW go through the antialiased resize, whose backward
+# is the port's own (core/imaging.py::_Resize: PyTorch's accumulates with
+# atomics and parted the graph from its twin by 0.13 on the card): held
+# within 1e-6, as phase 5g holds CW.
+GRAPH_ATOL = {"fusion": 0.0, "classifier": 1e-6}
+HOST_REPLAYS = 5  # replays timed one at a time for the host us a replay
+
+# each KERNEL_NAMES group -> the launch count of the wrapper that launches
+# its kernel; the conv3x3 forward and input grad share one kernel, so the
+# profiler sees their sum
+GROUP_COUNTS = {"styled_conv bf16": "styled_conv", "styled_conv fp32": "styled_conv",
+                "conv3x3_fwd/dgrad bf16": "conv3x3_fwd+dgrad",
+                "conv3x3_fwd/dgrad fp32": "conv3x3_fwd+dgrad",
+                "conv3x3_wgrad bf16": "conv3x3_wgrad", "conv3x3_wgrad fp32": "conv3x3_wgrad",
+                "pgd_update": "pgd_update", "fused_adam": "fused_adam"}
+AUDITED = ("styled_conv", "conv3x3_fwd+dgrad", "conv3x3_wgrad", "pgd_update", "fused_adam")
+
+
+def audited_counts(counts):
+    """``launch_counts``-keyed counts as the profiler can tell them apart
+    (``AUDITED`` keys)."""
+    return {"styled_conv": counts.get("styled_conv", 0),
+            "conv3x3_fwd+dgrad": counts.get("conv3x3_fwd", 0) + counts.get("conv3x3_dgrad", 0),
+            "conv3x3_wgrad": counts.get("conv3x3_wgrad", 0),
+            "pgd_update": counts.get("pgd_update", 0), "fused_adam": counts.get("fused_adam", 0)}
+
+
+def kernel_counts(rows):
+    """The launches of each wrapper's kernel among a profile's ``(kernel,
+    ms, calls)`` rows (``_device_rows``), ``AUDITED``-keyed."""
+    out = dict.fromkeys(AUDITED, 0)
+    for key, _, count in rows:
+        group = next((g for pat, g in KERNEL_NAMES if pat in key), None)
+        if group in GROUP_COUNTS:
+            out[GROUP_COUNTS[group]] += count
+    return out
+
+
+def replay_count_failures(what, measured, booked):
+    """A replay's kernel launches as the profiler saw them against those its
+    program adds to the counts (``StepProgram.launches``)."""
+    return [f"{what}: the profiler saw a replay launch {k} {measured[k]} times, the program "
+            f"counts {booked[k]}" for k in AUDITED if measured[k] != booked[k]]
+
+
+def _profiling(torch):
+    return bool(torch.autograd.profiler._is_profiler_enabled)
+
+
+class LaunchAudit:
+    """What the step programs' graph replays launch, measured. A wrapper
+    counts a launch when its Python runs, which a replay does not: a
+    program adds the launches that its capture counted at each replay
+    (``StepProgram.launches``; booked here). Installed over
+    ``StepProgram.run``, the audit runs the first replay of every program
+    under torch.profiler and counts the rows of each wrapper's kernel
+    (``kernel_counts``); a count that differs from the booked one fails the
+    run. ``read()`` gives the launch counts since ``reset()`` with every
+    replay at its program's measured counts, and fails if a replay in that
+    run was never measured. Inside ``paused()`` (a timed call) nothing is
+    profiled: the replays wait for ``measure(prog)``, or with
+    ``track=False`` (outside the counted runs) are not followed at all.
+    ``seconds`` is the time spent in the profiled replays."""
+
+    def __init__(self, torch):
+        import weakref
+
+        self.torch = torch
+        self.per_replay = weakref.WeakKeyDictionary()  # program -> its measured replay
+        self.orig = None
+        self.hold = self.untracked_mode = self.audited = 0
+        self.seconds = 0.0
+        self._zero()
+
+    def _zero(self):
+        self.booked = dict.fromkeys(AUDITED, 0)
+        self.measured = dict.fromkeys(AUDITED, 0)
+        self.pending: dict = {}  # program -> its replays not measured yet
+        self.untracked = 0
+
+    def install(self):
+        from tpufusion_torch.core.graphs import StepProgram
+
+        self.orig = StepProgram.run
+        StepProgram.run = lambda prog, n=1: self.run(prog, n)
+        return self
+
+    def uninstall(self):
+        from tpufusion_torch.core.graphs import StepProgram
+
+        StepProgram.run = self.orig
+
+    @contextlib.contextmanager
+    def paused(self, track=True):
+        self.hold += 1
+        self.untracked_mode += not track
+        try:
+            yield
+        finally:
+            self.hold -= 1
+            self.untracked_mode -= not track
+
+    def run(self, prog, n):
+        if prog.device.type != "cuda":
+            return self.orig(prog, n)
+        warm = min(n, prog.warm_left)
+        if warm:
+            self.orig(prog, warm)
+            n -= warm
+        if n and prog not in self.per_replay and not self.hold and not _profiling(self.torch):
+            self._measure(prog)
+            n -= 1
+        if n:
+            self.orig(prog, n)
+            self._book(prog, n)
+            self._credit(prog, n)
+
+    def _book(self, prog, n):
+        for k, v in audited_counts(prog.launches).items():
+            self.booked[k] += v * n
+
+    def _credit(self, prog, n):
+        got = self.per_replay.get(prog)
+        if got is not None:
+            for k in AUDITED:
+                self.measured[k] += got[k] * n
+        elif self.untracked_mode:
+            self.untracked += n
+        else:
+            self.pending[prog] = self.pending.get(prog, 0) + n
+
+    def _profile_replay(self, prog):
+        """One replay of ``prog`` under torch.profiler: its kernel rows."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        torch.cuda.synchronize()
+        pad = torch.zeros(1, device=prog.device)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):  # a launch right after the start can go missing
+                pad.add_(1)
+            torch.cuda.synchronize()
+            self.orig(prog, 1)
+            torch.cuda.synchronize()
+        return _device_rows(prof)
+
+    def _measure(self, prog):
+        prog.capture()
+        t0 = time.perf_counter()
+        got = kernel_counts(self._profile_replay(prog))
+        self.seconds += time.perf_counter() - t0
+        self.audited += 1
+        short = replay_count_failures("a step program", got, audited_counts(prog.launches))
+        if short:
+            fail("; ".join(short))
+        self.per_replay[prog] = got
+        self._book(prog, 1)
+        self._credit(prog, 1 + self.pending.pop(prog, 0))
+
+    def measure(self, prog) -> int:
+        """Profile one more replay of ``prog`` (a captured program not
+        measured yet; a loaded state that has taken its steps is
+        ``rewind``-ed first). Returns the replays it made, 0 or 1."""
+        if prog.graph is None or prog in self.per_replay:
+            return 0
+        if prog.taken >= prog.limit:
+            rewind(prog)
+        self._measure(prog)
+        return 1
+
+    def replay_counts(self, prog):
+        """One replay of ``prog`` by ``launch_counts`` key: measured, the
+        forward and input grad split as the capture counted them (their
+        sum measured)."""
+        got = self.per_replay[prog]
+        return dict(prog.launches, styled_conv=got["styled_conv"],
+                    conv3x3_wgrad=got["conv3x3_wgrad"], pgd_update=got["pgd_update"],
+                    fused_adam=got["fused_adam"])
+
+    def reset(self):
+        from tpufusion_torch import ops
+
+        ops.reset_launch_counts()
+        self._zero()
+
+    def read(self):
+        from tpufusion_torch import ops
+
+        if self.pending or self.untracked:
+            fail(f"{sum(self.pending.values()) + self.untracked} replays in a counted run "
+                 f"were never measured")
+        counts = ops.launch_counts()
+        out = dict(counts)
+        for k in ("styled_conv", "conv3x3_wgrad", "pgd_update", "fused_adam"):
+            out[k] = counts[k] - self.booked[k] + self.measured[k]
+        return out
+
+
+AUDIT = None  # the LaunchAudit of phases 4 on (main installs it)
+
+
+def reset_counts():
+    """Every launch count to 0: the start of a counted run."""
+    from tpufusion_torch import ops
+
+    (AUDIT.reset if AUDIT is not None else ops.reset_launch_counts)()
+
+
+def read_counts():
+    """The launch counts since ``reset_counts``, the replays' measured."""
+    from tpufusion_torch import ops
+
+    return AUDIT.read() if AUDIT is not None else ops.launch_counts()
+
+
+def audit_paused(track=True):
+    return AUDIT.paused(track) if AUDIT is not None else contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The launches inside the block (a comparison with an eager twin, not
+    the main path) leave the counts as they were."""
+    from tpufusion_torch import ops
+
+    saved = ops.launch_counts()
+    books = None if AUDIT is None else (dict(AUDIT.booked), dict(AUDIT.measured),
+                                        dict(AUDIT.pending), AUDIT.untracked)
+    try:
+        yield
+    finally:
+        ops.reset_launch_counts()
+        ops.add_launch_counts(saved)
+        if books is not None:
+            AUDIT.booked, AUDIT.measured, AUDIT.pending, AUDIT.untracked = books
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (warnings only; cuBLAS's workspace fixed) inside the block, the flags
+    restored after it."""
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+def rewind(prog):
+    """Load ``prog``'s end state again with every step counter (the integer
+    tensors) at 0, so that it takes its steps once more."""
+    from tpufusion_torch.core.graphs import map_tensors, static_copy
+
+    prog.load(map_tensors(lambda t: t if t.is_floating_point() else t.zero_(),
+                          static_copy(prog.state)), prog.inputs)
+
+
+def replay_step(prog):
+    """One replay of ``prog``, as a function for the profiler (rewound
+    whenever its loaded state has taken its steps)."""
+    def run():
+        if prog.taken >= prog.limit:
+            rewind(prog)
+        prog.run(1)
+    return run
+
+
+def replay_host_us(torch, prog, reps=HOST_REPLAYS):
+    """Host us of one replay with the card idle before it (the
+    ``graph.replay()`` call alone: no synchronize inside), the least of
+    ``reps``."""
+    out = []
+    for _ in range(reps):
+        if prog.taken >= prog.limit:
+            rewind(prog)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog.run(1)
+        out.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+    return min(out)
+
+
+def graphed_timing(torch, call, attack, steps, *, eager=None, what="", atol=0.0):
+    """``call()`` twice on one attack object, from the same start each
+    time, under the default flags, with the launch audit paused: the first
+    call, on new programs, timed (``first_call_ms``: the programs' first
+    steps eager, their captures, the replays after them), the second,
+    replays only, timed (``step_ms``, over ``steps``), then the host us of
+    a replay; then one more replay of each program measured
+    (``LaunchAudit.measure``), which settles the earlier replays. No
+    profiler runs between a capture and the timed replays: a graph's
+    replays right after a profiler session cost more (PERF.md §5). The
+    peak memory spans both calls. Returns ``(result, numbers)``: also
+    ``capture_ms`` (the programs' sum), ``host_us`` a replay, ``peak_gib``,
+    ``per_replay`` (each kernel's launches in one replay as the profiler
+    counted them, summed over the programs), ``counts`` (the second call's
+    launches), ``steps`` (every step it took: both calls, the measured
+    replays, ``host_us``'s) and ``hold``: a function that holds the same
+    attack object's graphs to ``eager()``, their eager twin from the same
+    start (``hold_timed_graph``), to be called outside the counted run and
+    before the attack's programs are freed."""
+    from tpufusion_torch import ops
+
+    from tpufusion_torch.ops import launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with audit_paused():
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        booked = _diff(launch_counts(), before)
+        host_us = replay_host_us(torch, list(attack.programs)[0])
+    # a replay allocates nothing: the step's activations were allocated
+    # from the graph's pool at capture, so the peak spans both calls
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    progs = list(attack.programs)
+    extra = sum(AUDIT.measure(p) for p in progs) if AUDIT is not None else 0
+    per_replay = dict.fromkeys(ops.launch_counts(), 0)
+    for prog in progs:
+        # measured on the card; a program that never captured replays nothing
+        one = (AUDIT.replay_counts(prog) if AUDIT is not None and prog.graph is not None
+               else prog.launches)
+        for k, v in one.items():
+            per_replay[k] += v
+    # the second call's launches, its replays at their measured counts (its
+    # eager work, a white-box call's reference bundle, as the wrappers count)
+    replay_booked = {k: sum(p.launches.get(k, 0) for p in progs if p.graph is not None) * steps
+                     for k in booked}
+    counts = {k: booked[k] - replay_booked[k] + per_replay[k] * steps for k in booked}
+    numbers = dict(step_ms=ms / steps, first_call_ms=first_ms, calls_steps=steps,
+                   capture_ms=sum(p.capture_ms for p in progs),
+                   host_us=host_us, peak_gib=peak,
+                   per_replay=per_replay, counts=counts, steps=2 * steps + extra + HOST_REPLAYS)
+    numbers["hold"] = lambda: hold_timed_graph(torch, what, call, eager, steps, atol=atol)
+    return out, numbers
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _as_tensor(torch, a):
+    import numpy as np
+
+    return torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+
+
+def graph_failures(torch, what, got, want, *, atol=0.0):
+    """``(max |got - want|, failures)`` over the tensor and array leaves of
+    a graphed run's result and its eager twin's (``held_failures`` each)."""
+    worst, out = 0.0, []
+    a, b = _leaves(got), _leaves(want)
+    if len(a) != len(b):
+        return math.inf, [f"{what}: {len(a)} results against the eager twin's {len(b)}"]
+    for i, (u, v) in enumerate(zip(a, b)):
+        err, fails = held_failures(torch, f"{what} (result {i})", _as_tensor(torch, u),
+                                   _as_tensor(torch, v), atol=atol)
+        worst = max(worst, err)
+        out += fails
+    return worst, [f.replace("single-device route", "eager twin") for f in out]
+
+
+def hold_timed_graph(torch, what, call, eager, steps, *, atol=0.0):
+    """The timed attack object held to ``eager()``, its eager twin from the
+    same start. Under the default flags two eager runs already differ (the
+    atomics of e4e's bilinear backward flip a sign step, and the runs
+    part), so the hold is made under
+    ``deterministic``: ``call()`` on the same attack object captures new
+    programs for these flags (its cache keys on them), the first call; the
+    second, replays only, is timed (``det_step_ms``) and held to the twin
+    with ``graph_failures``, which fails the run on a mismatch. The twin's
+    call is timed too. Returns ``dict(err, det_step_ms, eager_call_ms,
+    eager_per_step)``: the max |err|, the ms and the twin's launches a
+    step."""
+    from tpufusion_torch import ops
+
+    with deterministic(torch):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = call()
+        torch.cuda.synchronize()
+        det_ms = (time.perf_counter() - t0) * 1e3
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        want = eager()
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        after = ops.launch_counts()
+    err, fails = graph_failures(torch, what, got, want, atol=atol)
+    if fails:
+        fail("; ".join(fails))
+    per_step = {k: (after[k] - before[k]) / steps for k in after}
+    log(f"  {what}: the attack's graphs against the eager twin, deterministic: max_abs_err "
+        f"{err:.3e} (tol {atol:g}); replays {det_ms / steps:.3f} ms a step, the twin "
+        f"{eager_ms / steps:.3f}; the twin's launches a step {per_step}")
+    return dict(err=err, det_step_ms=det_ms / steps, eager_call_ms=eager_ms,
+                eager_per_step=per_step)
+
+
+def replay_launch_failures(what, per_replay, eager_per_step):
+    """A graph replay launches each kernel as often as an eager step does."""
+    return [f"{what}: a replay launches {k} {per_replay.get(k, 0)} times, an eager step "
+            f"{v}" for k, v in eager_per_step.items() if per_replay.get(k, 0) != v]
+
+
+def hold_graphs(what, g, hold):
+    """Fail the run unless a replay launches what an eager step does."""
+    short = replay_launch_failures(what, g["per_replay"], hold["eager_per_step"])
+    if short:
+        fail("; ".join(short))
+
+
+def log_graph(card, what, g):
+    log(f"  {what}: first call {g['first_call_ms']:.1f} ms (its capture {g['capture_ms']:.1f}), "
+        f"host_us a replay {g['host_us']:.1f}, peak_gib {g['peak_gib']:.3f} [{card}]; a replay "
+        f"launches (the profiler's count) {g['per_replay']}")
+
+
+def graph_numbers(prefix, g, hold=None):
+    """The numbers of one graphed attack (``graphed_timing``) and of its
+    timed graph's hold (``hold_timed_graph``), named ``<prefix>_...``."""
+    out = {f"{prefix}_capture_ms": g["capture_ms"], f"{prefix}_first_call_ms": g["first_call_ms"],
+           f"{prefix}_host_us_per_replay": g["host_us"]}
+    if hold is not None:
+        out.update({f"{prefix}_graph_vs_eager": hold["err"],
+                    f"{prefix}_deterministic_step_ms": hold["det_step_ms"],
+                    f"{prefix}_deterministic_eager_step_ms":
+                        hold["eager_call_ms"] / g["calls_steps"]})
+        log(f"  {prefix}: a call on a new attack {g['first_call_ms']:.3f} ms (first step eager, "
+            f"capture, replays), the second call {g['step_ms'] * g['calls_steps']:.3f} ms")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the main path at full width
 # ---------------------------------------------------------------------------
 
@@ -1288,10 +1787,18 @@ FULL_PIPELINE = dict(size=1024, channel_multiplier=2, encoder_base_channels=64,
 
 
 def run_main_path(torch, card):
+    """The fusion attack (arithmetic, pixel objective) on N = 2 1024^2
+    inputs: a warm-up forward and step, then with the launch counts set to
+    0: three timed fused forwards, FGSM and a 5-step PGD attack called
+    twice from one start (``graphed_timing``: the first call captures its
+    step, the second is timed); then, outside the counted run, the timed
+    graph held to its eager twin under the same flags and a new graph held
+    bit-equal to it under ``deterministic``."""
     from tpufusion_torch import ops
     from tpufusion_torch.attacks.fusion_attack import (
         FusionAttackConfig, fgsm_on_fusion, make_fused_image_fn, make_fusion_attack,
         make_fusion_loss)
+    from tpufusion_torch.attacks.pgd import pgd_eager, pgd_random_start
     from tpufusion_torch.pipeline import FusionPipeline
 
     t0 = time.perf_counter()
@@ -1314,7 +1821,16 @@ def run_main_path(torch, card):
         cfg, pgd=dataclasses.replace(cfg.pgd, steps=1)))(inputs, target, gen)
     torch.cuda.synchronize()
 
-    ops.reset_launch_counts()
+    pc = dataclasses.replace(pgd_cfg.pgd, targeted=pgd_cfg.targeted)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(11)
+
+    def eager():
+        return pgd_eager(make_fusion_loss(pipe, pgd_cfg), pc, inputs,
+                         pgd_random_start(inputs, seeded(), pc), target)
+
+    reset_counts()
     n_fwd = 3
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -1322,17 +1838,15 @@ def run_main_path(torch, card):
             fused = fused_fn(inputs)
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t0) * 1e3 / n_fwd
-    fwd_launches = ops.launch_counts()["styled_conv"]
+    fwd_launches = read_counts()["styled_conv"]
     adv1, tr1 = fgsm_on_fusion(pipe)(inputs, target)
-    before_pgd = ops.launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    adv, trace = make_fusion_attack(pipe, pgd_cfg)(inputs, target, gen)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / pgd_cfg.pgd.steps
-    launches = ops.launch_counts()
-    per_step = {k: (launches[k] - before_pgd[k]) / pgd_cfg.pgd.steps for k in launches}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    attack = make_fusion_attack(pipe, pgd_cfg)
+    before_pgd = read_counts()
+    (adv, trace), g = graphed_timing(torch, lambda: attack(inputs, target, seeded()), attack,
+                                     pgd_cfg.pgd.steps, eager=eager, what="fusion PGD")
+    launches = read_counts()
+    per_step = dict(g["per_replay"])
+    step_ms, peak_gib = g["step_ms"], g["peak_gib"]
     with torch.no_grad():
         final_loss = make_fusion_loss(pipe, cfg)(adv, target).item()
 
@@ -1357,15 +1871,123 @@ def run_main_path(torch, card):
     if fwd_launches != per_fwd * n_fwd:
         fail(f"{n_fwd} fused forwards launched styled_conv {fwd_launches} times, "
              f"expected {per_fwd * n_fwd}")
+    timed = {k: (launches[k] - before_pgd[k]) for k in launches}
     log(f"  fused_forward_ms {fwd_ms:.3f} [{card}] (mean of {n_fwd})")
-    log(f"  pgd_step_ms {step_ms:.3f} [{card}] (N=2 inputs, 1024^2, bf16, 5 steps)")
+    log(f"  pgd_step_ms {step_ms:.3f} [{card}] (N=2 inputs, 1024^2, bf16, 5 steps: graph "
+        f"replays of the captured step, the second call of one attack)")
+    log_graph(card, "pgd", g)
     log(f"  peak_memory_gib {peak_gib:.3f} [{card}]")
     log(f"  loss trace {trace} -> final {final_loss:.6f}; fgsm loss {tr1.item():.6f}")
     log(f"  launches {launches} ({n_fwd} fused forwards: styled_conv {fwd_launches}; "
-        f"per PGD step {per_step})")
+        f"per PGD step {per_step}; the PGD calls of graphed_timing {timed})")
+
+    timed_hold = g["hold"]()
+    attack.programs.release()
+    hold_graphs("fusion PGD", g, timed_hold)
+    release_cache(torch)
     return launches, per_step, dict(fused_forward_ms=fwd_ms, pgd_step_ms=step_ms,
-                                 peak_memory_gib=peak_gib, loss_trace=trace,
-                                 final_loss=final_loss), (pipe, cfg, inputs, target, gen)
+                                    **graph_numbers("pgd", g, timed_hold),
+                                    peak_memory_gib=peak_gib, loss_trace=trace,
+                                    final_loss=final_loss), \
+        (pipe, cfg, inputs, target, gen)
+
+
+# ---------------------------------------------------------------------------
+# --first-calls: what a user's call costs on a new attack object
+# ---------------------------------------------------------------------------
+
+FIRST_CALL_N = 5  # the ffhq fusion roles; configs/ffhq_whitebox.json's N
+# steps: R+FGSM's one; AttackRunConfig's pgd_steps (100) for pgd and
+# fusion_pgd_arith; ITER_DICT at 1024^2 (100) for white_box_target
+FIRST_CALL_STEPS = {"fgsm": 1, "pgd": 100, "fusion_pgd_arith": 100, "white_box_target": 100}
+
+
+def _wall_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def run_first_calls(torch, card):
+    """Each attack that the runner dispatches, at FFHQ 1024^2 on N = 5
+    inputs at its config's step count (``FIRST_CALL_STEPS``): a call on a
+    new attack object (``first_ms``: its program's first step eager, the
+    capture, the replays), a second call on it (``second_ms``: replays
+    only) and the eager twin from the same start (``eager_ms``), after a
+    1-step warm-up of each; host clock around a synchronize. R+FGSM and PGD
+    on the runner's encoder-drift objective (``fgsm``, ``pgd``), fusion
+    PGD (``fusion_pgd_arith``) and the per-image white-box attack
+    (``white_box_target``, its reference bundle included). The flags are
+    the production ones (phases 5-5h hold the graphs to their twins under
+    ``deterministic``): the results are only checked finite."""
+    from tpufusion_torch.attacks.fusion_attack import (
+        FusionAttackConfig, make_fusion_attack, make_fusion_loss)
+    from tpufusion_torch.attacks.pgd import PGDConfig, make_pgd, pgd_eager, pgd_random_start
+    from tpufusion_torch.attacks.whitebox import (
+        PRESET_ATTACK_MAIN, WhiteboxConfig, make_per_image_whitebox, run_eager)
+    from tpufusion_torch.core.imaging import avg_pool
+    from tpufusion_torch.pipeline import FusionPipeline
+
+    pipe = FusionPipeline.create("ffhq", device="cuda", **FULL_PIPELINE)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.rand((FIRST_CALL_N, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
+    target = torch.rand((1, 1024, 1024, 3), generator=gen, device="cuda") * 2 - 1
+    with torch.no_grad():
+        ref = pipe.encode(x)
+    factor = pipe.pool_factor
+    eps = 8 / 255 * 2
+
+    def drift(adv, ref_codes):  # the runner's pgd / fgsm objective
+        return ((pipe.encoder(avg_pool(adv, factor)).float() - ref_codes.float()) ** 2).mean()
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(22)
+
+    def drift_case(alpha):
+        def of(n):
+            cfg = PGDConfig(eps=eps, alpha=alpha, steps=n, random_start=True)
+            return (lambda: make_pgd(drift, cfg, fixed=(pipe,)), lambda a: a(x, seeded(), ref),
+                    lambda: pgd_eager(drift, cfg, x, pgd_random_start(x, seeded(), cfg), ref))
+        return of
+
+    def fusion_case(n):
+        cfg = FusionAttackConfig(pgd=PGDConfig(eps=eps, alpha=0.01 * 2, steps=n))
+        pc = PGDConfig(eps=eps, alpha=0.01 * 2, steps=n, targeted=True)
+        return (lambda: make_fusion_attack(pipe, cfg), lambda a: a(x, target, seeded()),
+                lambda: pgd_eager(make_fusion_loss(pipe, cfg), pc, x,
+                                  pgd_random_start(x, seeded(), pc), target))
+
+    def whitebox_case(n):
+        cfg = WhiteboxConfig(lr=WB_LR, n_iters=n, weights=PRESET_ATTACK_MAIN)
+        return (lambda: make_per_image_whitebox(pipe, cfg), lambda a: a(x, target),
+                lambda: run_eager(pipe, cfg, x, target, per_image=True))
+
+    cases = {"fgsm": drift_case(eps), "pgd": drift_case(0.01 * 2),
+             "fusion_pgd_arith": fusion_case, "white_box_target": whitebox_case}
+    out = {}
+    for name, steps in FIRST_CALL_STEPS.items():
+        of = cases[name]
+        make1, call1, _ = of(1)
+        call1(make1())  # warm-up: kernels, cuDNN plans at these shapes
+        make, call, eager = of(steps)
+        attack = make()
+        got, first_ms = _wall_ms(torch, lambda: call(attack))
+        _, second_ms = _wall_ms(torch, lambda: call(attack))
+        want, eager_ms = _wall_ms(torch, eager)
+        for t in _leaves((got, want)):
+            if not bool(torch.isfinite(_as_tensor(torch, t)).all()):
+                fail(f"first call {name}: a non-finite result")
+        captured = [p for p in attack.programs if p.graph is not None]
+        out[name] = dict(steps=steps, first_ms=first_ms, second_ms=second_ms, eager_ms=eager_ms,
+                         capture_ms=sum(p.capture_ms for p in captured), graphs=len(captured))
+        attack.programs.release()
+        release_cache(torch)
+        log(f"  {name}, {steps} steps: a new attack's call {first_ms:.3f} ms, the second call "
+            f"{second_ms:.3f} ms (the captures {out[name]['capture_ms']:.3f} ms, "
+            f"{len(captured)} graphs), the eager twin {eager_ms:.3f} ms [{card}]")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1378,11 +2000,17 @@ WB_N, WB_ITERS, WB_LR = 5, 5, 1e-4  # configs/ffhq_whitebox.json: N=5, lr 1e-4
 def run_whitebox_path(torch, card, pipe):
     """``run_whitebox`` on N = 5 1024^2 inputs, all attacked toward one
     target (white_box_target), PRESET_ATTACK_MAIN, lr 1e-4: one warm-up
-    iteration, then ``WB_ITERS`` timed iterations with the launch counts set
-    to 0 just before and read just after."""
+    iteration, then with the launch counts set to 0 just before and read
+    just after: a ``WB_ITERS``-iteration ``run_whitebox``, and the per-image
+    attack it calls (``make_per_image_whitebox``) called twice on the same
+    inputs (the first call captures its step, the second is timed); then,
+    outside the counted run, the timed graph held to its eager twin under
+    the same flags and a new graph held bit-equal to it under
+    ``deterministic``. Returns what phase 6b profiles: a function that builds and captures a
+    white-box attack."""
     from tpufusion_torch import ops
     from tpufusion_torch.attacks.whitebox import (
-        PRESET_ATTACK_MAIN, WhiteboxConfig, make_whitebox_stepper, run_whitebox)
+        PRESET_ATTACK_MAIN, WhiteboxConfig, make_per_image_whitebox, run_eager, run_whitebox)
     from tpufusion_torch.ops.adam_update import B1, B2
 
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1392,19 +2020,20 @@ def run_whitebox_path(torch, card, pipe):
     run_whitebox(pipe, inputs, target, dataclasses.replace(cfg, n_iters=1))  # warm-up
     torch.cuda.synchronize()
 
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    adv, trace = run_whitebox(pipe, inputs, target, cfg)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / WB_ITERS
-    launches = ops.launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    per_step = {k: v / WB_ITERS for k, v in launches.items()}
+    reset_counts()
+    adv_entry, _ = run_whitebox(pipe, inputs, target, cfg)
+    attack = make_per_image_whitebox(pipe, cfg)
+    (adv, trace), g = graphed_timing(
+        torch, lambda: attack(inputs, target), attack, WB_ITERS,
+        eager=lambda: run_eager(pipe, cfg, inputs, target, per_image=True), what="white-box")
+    launches = read_counts()
+    step_ms, peak_gib = g["step_ms"], g["peak_gib"]
+    per_step = dict(g["per_replay"])
 
     totals = trace["total"].float().cpu()
-    if tuple(adv.shape) != tuple(inputs.shape):
-        fail(f"white-box adv has shape {tuple(adv.shape)}")
+    for a in (adv, adv_entry):
+        if tuple(a.shape) != tuple(inputs.shape):
+            fail(f"white-box adv has shape {tuple(a.shape)}")
     for k, v in trace.items():
         if tuple(v.shape) != (WB_N, WB_ITERS) or not torch.isfinite(v).all():
             fail(f"white-box trace {k}: shape {tuple(v.shape)} or non-finite values")
@@ -1415,8 +2044,12 @@ def run_whitebox_path(torch, card, pipe):
     per_fwd, n_c3 = family_expectations(pipe.generator.conv_plan())
     need = {"fused_adam": WB_ITERS, "styled_conv": per_fwd * WB_ITERS,
             "conv3x3_fwd": n_c3 * WB_ITERS, "conv3x3_dgrad": n_c3 * WB_ITERS}
-    if launches["fused_adam"] != WB_ITERS:
-        fail(f"{WB_ITERS} white-box iterations launched fused_adam "
+    # measured: one launch a replay, and one a step of run_whitebox and of
+    # graphed_timing's calls, exactly
+    if per_step.get("fused_adam") != 1:
+        fail(f"a white-box replay launches fused_adam {per_step.get('fused_adam')} times")
+    if launches["fused_adam"] != WB_ITERS + g["steps"]:
+        fail(f"{WB_ITERS + g['steps']} white-box steps launched fused_adam "
              f"{launches['fused_adam']} times")
     for name, n_min in need.items():
         if launches[name] < n_min:
@@ -1429,20 +2062,28 @@ def run_whitebox_path(torch, card, pipe):
         fail(f"white-box total did not fall for every image: {first.tolist()} -> "
              f"{last.tolist()}")
     log(f"  whitebox_step_ms {step_ms:.3f} [{card}] (N={WB_N} inputs, 1024^2, bf16, "
-        f"mean of a {WB_ITERS}-iteration run_whitebox, its reference bundle included)")
+        f"mean of a {WB_ITERS}-iteration per-image attack, its reference bundle included: "
+        f"graph replays, the second call of one attack)")
+    log_graph(card, "whitebox", g)
     log(f"  whitebox_peak_memory_gib {peak_gib:.3f} [{card}]")
     log(f"  per-image total trace {totals.tolist()}")
     log(f"  pixels moved at most {moved:.6e} (Adam bound {adam_bound:.6e}); total fell "
         f"for every image: {first.tolist()} -> {last.tolist()}")
     log(f"  launches {launches} (per white-box iteration {per_step})")
+    timed_hold = g["hold"]()
+    attack.programs.release()
+    hold_graphs("white-box", g, timed_hold)
+    release_cache(torch)
 
-    # one stepper state for phase 6's profile of a single white-box step
-    init, step = make_whitebox_stepper(pipe, cfg, per_image=True)
-    state = init(inputs, target)
+    def profiled():
+        att = make_per_image_whitebox(pipe, dataclasses.replace(cfg, n_iters=2))
+        att(inputs, target)
+        return att
     return launches, per_step, dict(
         whitebox_step_ms=step_ms, whitebox_peak_memory_gib=peak_gib,
+        **graph_numbers("whitebox", g, timed_hold),
         whitebox_total_trace=totals.tolist(), whitebox_moved_max=moved,
-        whitebox_adam_bound=adam_bound), lambda: step(state)
+        whitebox_adam_bound=adam_bound), profiled
 
 
 # ---------------------------------------------------------------------------
@@ -1478,7 +2119,8 @@ def run_spatial_path(torch, card, pipe):
     """The spatial-fusion PGD attack with the VGG objective on N = 5 1024^2
     inputs (the ffhq roles) and one target: a warm-up forward and step, then
     with the launch counts set to 0: three timed no-grad fused forwards,
-    FGSM and 5 PGD steps at the default eps and alpha, then the evaluation
+    FGSM and a 5-step PGD attack at the default eps and alpha called twice
+    (the first call captures its step, the second is timed), then the evaluation
     of the attack: the benign fusions and the partial fusions of both modes
     with their metrics (``partial_eval_ms``: both modes' partial fusions and
     metrics, after one untimed round). The counts are read at the end."""
@@ -1486,6 +2128,7 @@ def run_spatial_path(torch, card, pipe):
     from tpufusion_torch.attacks.fusion_attack import (
         FusionAttackConfig, fgsm_on_fusion, make_fused_image_fn, make_fusion_attack,
         make_fusion_loss)
+    from tpufusion_torch.attacks.pgd import pgd_eager, pgd_random_start
     from tpufusion_torch.eval import benign_fusion, fused_image_metrics, partial_adv_fusion
     from tpufusion_torch.fusion.spatial import spatial_fusion
 
@@ -1503,7 +2146,16 @@ def run_spatial_path(torch, card, pipe):
         cfg, pgd=dataclasses.replace(cfg.pgd, steps=1)))(inputs, target, gen)
     torch.cuda.synchronize()
 
-    ops.reset_launch_counts()
+    pc = dataclasses.replace(pgd_cfg.pgd, targeted=pgd_cfg.targeted)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(12)
+
+    def eager():
+        return pgd_eager(make_fusion_loss(pipe, pgd_cfg), pc, inputs,
+                         pgd_random_start(inputs, seeded(), pc), target)
+
+    reset_counts()
     n_fwd = 3
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -1511,17 +2163,12 @@ def run_spatial_path(torch, card, pipe):
             fused = fused_fn(inputs)
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t0) * 1e3 / n_fwd
-    fwd_launches = ops.launch_counts()["styled_conv"]
+    fwd_launches = read_counts()["styled_conv"]
     adv1, tr1 = fgsm_on_fusion(pipe, mode="spatial", objective="vgg")(inputs, target)
-    before_pgd = ops.launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    adv, trace = make_fusion_attack(pipe, pgd_cfg)(inputs, target, gen)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / SPATIAL_STEPS
-    after_pgd = ops.launch_counts()
-    per_step = {k: (after_pgd[k] - before_pgd[k]) / SPATIAL_STEPS for k in after_pgd}
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    attack = make_fusion_attack(pipe, pgd_cfg)
+    (adv, trace), g = graphed_timing(torch, lambda: attack(inputs, target, seeded()), attack,
+                                     SPATIAL_STEPS, eager=eager, what="spatial PGD")
+    step_ms, peak_gib, per_step = g["step_ms"], g["peak_gib"], dict(g["per_replay"])
 
     with torch.no_grad():
         final_loss = make_fusion_loss(pipe, cfg)(adv, target).item()
@@ -1535,16 +2182,16 @@ def run_spatial_path(torch, card, pipe):
                 out[m] = (part, fused_image_metrics(pipe, benign[m][0], part))
             return out
 
-        before_eval = ops.launch_counts()["styled_conv"]
+        before_eval = read_counts()["styled_conv"]
         evaluate()
-        eval_launches = ops.launch_counts()["styled_conv"] - before_eval
+        eval_launches = read_counts()["styled_conv"] - before_eval
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         evaluated = evaluate()
         torch.cuda.synchronize()
         eval_ms = (time.perf_counter() - t0) * 1e3
         ref = spatial_fusion(pipe.drawer, adv_latents)[0]
-    launches = ops.launch_counts()
+    launches = read_counts()
 
     if tuple(fused.shape) != (1, 1024, 1024, 3) or not torch.isfinite(fused).all():
         fail(f"spatial fused image has shape {tuple(fused.shape)} or non-finite values")
@@ -1579,6 +2226,7 @@ def run_spatial_path(torch, card, pipe):
     log(f"  spatial_fused_forward_ms {fwd_ms:.3f} [{card}] (mean of {n_fwd})")
     log(f"  spatial_pgd_step_ms {step_ms:.3f} [{card}] (N={SPATIAL_N} inputs, 1024^2, bf16, "
         f"'vgg' objective, {SPATIAL_STEPS} steps)")
+    log_graph(card, "spatial pgd", g)
     log(f"  spatial_peak_memory_gib {peak_gib:.3f} [{card}]")
     log(f"  partial_eval_ms {eval_ms:.3f} [{card}] (partial fusions, batch {SPATIAL_N + 1}, "
         f"and their metrics, both modes)")
@@ -1589,8 +2237,13 @@ def run_spatial_path(torch, card, pipe):
         log(f"  {m} partial metrics: mse {v['mse']}, vgg {v['vgg']}, ssim {v['ssim']}")
     log(f"  launches {launches} ({n_fwd} fused forwards: styled_conv {fwd_launches}; per PGD "
         f"step {per_step}; partial fusions, one round: styled_conv {eval_launches})")
+    timed_hold = g["hold"]()
+    attack.programs.release()
+    hold_graphs("spatial PGD", g, timed_hold)
+    release_cache(torch)
     return launches, per_step, dict(
         spatial_fused_forward_ms=fwd_ms, spatial_pgd_step_ms=step_ms,
+        **graph_numbers("spatial", g, timed_hold),
         spatial_peak_memory_gib=peak_gib, partial_eval_ms=eval_ms, spatial_loss_trace=trace,
         spatial_final_loss=final_loss, partial_metrics=metrics,
         spatial_partial_vs_batch1=rel), (cfg, inputs, target, gen)
@@ -1671,8 +2324,9 @@ def run_patch_path(torch, card, pipe):
     before, read just after): (a) square patch training, 2 images x 5 inner
     steps, then a circle patch, 1 image x 2; (b) the trained square patch on
     5 inputs, their arithmetic and spatial fusions and the partial fusions
-    of both modes; (c) ``white_box_patch``: ``run_whitebox`` toward the
-    per-image paste targets; (d) the baselines, each fused arithmetically;
+    of both modes; (c) ``white_box_patch``: ``run_whitebox``'s per-image
+    attack toward the per-image paste targets (the second of two calls
+    timed); (d) the baselines, each fused arithmetically;
     (e) the hybrid splice of the blur and dp batches; (f) both legacy
     variants on one image. Returns the launch counts, the launches per patch
     inner step, the numbers and a patch batch for phase 6d."""
@@ -1681,7 +2335,8 @@ def run_patch_path(torch, card, pipe):
         PRESET_ATTACK_MAIN, LegacyOptimizeConfig, PatchConfig, WhiteboxConfig, apply_patch,
         canonical_canvas, dp_noise, gaussian_blur_noise, init_patch_square,
         make_fused_image_fn, make_legacy_optimize, make_patch_attack_step, out_domain_more,
-        out_domain_single, paste_patch, run_whitebox, splice_hybrid, train_patch)
+        out_domain_single, paste_patch, splice_hybrid, train_patch)
+    from tpufusion_torch.attacks.whitebox import make_per_image_whitebox
     from tpufusion_torch.core.imaging import resize_bilinear
     from tpufusion_torch.eval import benign_fusion, partial_adv_fusion
     from tpufusion_torch.models.lpips import LPIPS
@@ -1699,7 +2354,7 @@ def run_patch_path(torch, card, pipe):
     make_patch_attack_step(pipe, dataclasses.replace(cfg, max_count=1))(
         train[:1], init_patch_square(size, cfg.patch_frac, gen), gen)
     torch.cuda.synchronize()
-    ops.reset_launch_counts()
+    reset_counts()
     t_phase = time.perf_counter()
     out = {}
 
@@ -1723,7 +2378,7 @@ def run_patch_path(torch, card, pipe):
         inner_ms.append((time.perf_counter() - t0) * 1e3 / PATCH_COUNT)
         traces.append(trace.float().cpu().tolist())
         _check_patch_batch(torch, f"patch batch {i} (bf16)", img, patch, trace, descent=False)
-    patch_counts = ops.launch_counts()
+    patch_counts = read_counts()
     per_inner = {k: v / (PATCH_IMAGES * PATCH_COUNT) for k, v in patch_counts.items()}
     out.update(patch_inner_step_ms=statistics.median(inner_ms),
                patch_inner_step_ms_per_batch=inner_ms, patch_loss_traces=traces,
@@ -1772,15 +2427,15 @@ def run_patch_path(torch, card, pipe):
     # (c) white_box_patch: per-image paste targets into run_whitebox
     wcfg = WhiteboxConfig(lr=WB_LR, n_iters=WBP_ITERS, weights=PRESET_ATTACK_MAIN)
     targets = paste_patch(inputs, target, PASTE_TIMES)
-    adam_before = ops.launch_counts()["fused_adam"]
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    adv, trace = run_whitebox(pipe, inputs, targets, wcfg)
-    torch.cuda.synchronize()
-    out["whitebox_patch_step_ms"] = (time.perf_counter() - t0) * 1e3 / WBP_ITERS
-    out["whitebox_patch_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    adam_launches = ops.launch_counts()["fused_adam"] - adam_before
+    # run_whitebox's per-image attack on every row, called twice: the first
+    # call captures its step, the second is timed (its fused_adam launches
+    # measured: one a replay)
+    wbp = make_per_image_whitebox(pipe, wcfg)
+    (adv, trace), g = graphed_timing(torch, lambda: wbp(inputs, targets), wbp, WBP_ITERS)
+    wbp.programs.release()
+    out["whitebox_patch_step_ms"], out["whitebox_patch_peak_memory_gib"] = (g["step_ms"],
+                                                                            g["peak_gib"])
+    adam_launches = g["counts"]["fused_adam"]
     totals = trace["total"].float().cpu()
     moved = (adv - inputs).abs().max().item()
     adam_bound = WBP_ITERS * WB_LR * (1 - B1) / math.sqrt(1 - B2)
@@ -1884,7 +2539,7 @@ def run_patch_path(torch, card, pipe):
         log(f"  legacy {variant}, lr {lcfg.lr}: {frames.shape[0]} frames; terms {terms}")
         log(f"  legacy {variant}, lr {WB_LR}: totals {total.tolist()} fall")
 
-    launches = ops.launch_counts()
+    launches = read_counts()
     out["patch_phase_s"] = time.perf_counter() - t_phase
     log(f"  launches {launches} (per patch inner step {per_inner}); phase 5d "
         f"{out['patch_phase_s']:.1f} s [{card}]")
@@ -2149,8 +2804,8 @@ def run_classifier_path(torch, card, pipe):
     import torch.nn.functional as F
 
     from tpufusion_torch import ops
-    from tpufusion_torch.attacks.cw import CWConfig, make_cw
-    from tpufusion_torch.attacks.pgd import PGDConfig, make_pgd
+    from tpufusion_torch.attacks.cw import CWConfig, cw_eager, make_cw
+    from tpufusion_torch.attacks.pgd import PGDConfig, make_pgd, pgd_eager, pgd_random_start
     from tpufusion_torch.eval import benign_fusion, fused_image_metrics, partial_adv_fusion
     from tpufusion_torch.models.classifiers import create_vit_classifier, load_gender_classifier
     from tpufusion_torch.models.discriminator import create_discriminator, realism_scores
@@ -2173,16 +2828,31 @@ def run_classifier_path(torch, card, pipe):
     with torch.no_grad():
         labels = fn(resnet, x).argmax(-1)
         vit_labels = vit_fn(vit, xv).argmax(-1)
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(13)
+
     torch.cuda.synchronize()
-    ops.reset_launch_counts()
+    reset_counts()
     t_phase = time.perf_counter()
     out = {}
 
+    def hold_now(name, attack, g):
+        # the timed graphs against their eager twin: a comparison, not counted
+        with uncounted():
+            hold = g["hold"]()
+        out.update(graph_numbers(name, g, hold))
+        attack.programs.release()
+        hold_graphs(name, g, hold)
+
     # (1) classifier PGD
     pgd1(x, gen, resnet, labels)  # warm-up (cuDNN plans)
-    before = ops.launch_counts()
-    (adv, trace), ms, peak = _timed(torch, lambda: pgd(x, gen, resnet, labels))
-    pgd_counts = _diff(ops.launch_counts(), before)
+    (adv, trace), g = graphed_timing(
+        torch, lambda: pgd(x, seeded(), resnet, labels), pgd, CLF_STEPS,
+        eager=lambda: pgd_eager(ce_of(fn), cfg, x, pgd_random_start(x, seeded(), cfg), resnet,
+                                labels), what="classifier PGD", atol=GRAPH_ATOL["classifier"])
+    ms, peak, pgd_counts = g["step_ms"] * CLF_STEPS, g["peak_gib"], g["counts"]
+    log_graph(card, "classifier pgd", g)
+    hold_now("classifier_pgd", pgd, g)
     dev = _check_pgd_run(torch, "classifier PGD", x, adv, trace)
     with torch.no_grad():
         flips = int((fn(resnet, adv).argmax(-1) != labels).sum())
@@ -2199,10 +2869,14 @@ def run_classifier_path(torch, card, pipe):
         return make_cw(lambda im, net: fn(net, im), config)
 
     cw_of(CWConfig(steps=1))(x, labels, resnet)  # warm-up
-    before = ops.launch_counts()
-    (best_adv, best_l2), ms, peak = _timed(
-        torch, lambda: cw_of(CWConfig(steps=CW_STEPS))(x, labels, resnet))
-    cw_counts = _diff(ops.launch_counts(), before)
+    cw = cw_of(CWConfig(steps=CW_STEPS))
+    (best_adv, best_l2), g = graphed_timing(
+        torch, lambda: cw(x, labels, resnet), cw, CW_STEPS,
+        eager=lambda: cw_eager(lambda im, net: fn(net, im), CWConfig(steps=CW_STEPS), x, labels,
+                               resnet), what="CW", atol=GRAPH_ATOL["classifier"])
+    ms, peak, cw_counts = g["step_ms"] * CW_STEPS, g["peak_gib"], g["counts"]
+    log_graph(card, "cw", g)
+    hold_now("cw", cw, g)
     big_adv, big_l2 = cw_of(CWConfig(c=CW_BIG_C, steps=CW_BIG_STEPS))(x, labels, resnet)
     short = cw_bookkeeping_failures(torch, x, best_adv, best_l2, "CW")
     short += cw_bookkeeping_failures(torch, x, big_adv, big_l2, f"CW at c {CW_BIG_C:g}")
@@ -2222,9 +2896,12 @@ def run_classifier_path(torch, card, pipe):
     # (3) ViT PGD
     vit_pgd = make_pgd(ce_of(vit_fn), dataclasses.replace(cfg, steps=VIT_STEPS))
     make_pgd(ce_of(vit_fn), dataclasses.replace(cfg, steps=1))(xv, gen, vit, vit_labels)
-    before = ops.launch_counts()
-    (vadv, vtrace), ms, peak = _timed(torch, lambda: vit_pgd(xv, gen, vit, vit_labels))
-    vit_counts = _diff(ops.launch_counts(), before)
+    (vadv, vtrace), g = graphed_timing(torch, lambda: vit_pgd(xv, seeded(), vit, vit_labels),
+                                       vit_pgd, VIT_STEPS)
+    ms, peak, vit_counts = g["step_ms"] * VIT_STEPS, g["peak_gib"], g["counts"]
+    log_graph(card, "vit pgd", g)
+    out.update(graph_numbers("vit_pgd", g))
+    vit_pgd.programs.release()
     vdev = _check_pgd_run(torch, "ViT PGD", xv, vadv, vtrace)
     with torch.no_grad():
         vflips = int((vit_fn(vit, vadv).argmax(-1) != vit_labels).sum())
@@ -2237,7 +2914,7 @@ def run_classifier_path(torch, card, pipe):
         f"labels flipped {vflips} of {VIT_N} (not gated)")
 
     # (4) the first five clean and PGD crops into fusion, as adv_generate
-    before = ops.launch_counts()
+    before = read_counts()
     with torch.no_grad():
         clean = pipe.get_latents(x[:TRANSFER_N])
         attacked = pipe.get_latents(adv[:TRANSFER_N])
@@ -2247,7 +2924,7 @@ def run_classifier_path(torch, card, pipe):
             part = partial_adv_fusion(pipe.drawer, clean, attacked, m)
             fused[m] = (benign, part)
             metrics[m] = [v.tolist() for v in fused_image_metrics(pipe, benign, part)]
-    transfer_counts = _diff(ops.launch_counts(), before)
+    transfer_counts = _diff(read_counts(), before)
     for m, (benign, part) in fused.items():
         if not (_fuse_ok(torch, benign) and _fuse_ok(torch, part, TRANSFER_N + 1)):
             fail(f"the {m} transfer fusions are not finite 1024^2 images")
@@ -2270,7 +2947,7 @@ def run_classifier_path(torch, card, pipe):
     log(f"  realism scores (spatial clean, spatial adversarial, arithmetic clean, arithmetic "
         f"adversarial): {scores.float().tolist()}")
 
-    launches = ops.launch_counts()
+    launches = read_counts()
     out["classifier_phase_s"] = time.perf_counter() - t_phase
     short = classifier_launch_failures(pgd_counts, cw_counts, vit_counts, transfer_counts)
     if short:
@@ -2280,12 +2957,23 @@ def run_classifier_path(torch, card, pipe):
     log(f"  launches {launches} (resnet PGD {pgd_counts}; CW {cw_counts}; ViT PGD "
         f"{vit_counts}; transfer fusions {transfer_counts}); phase 5e "
         f"{out['classifier_phase_s']:.1f} s [{card}]")
-    cw1 = cw_of(CWConfig(steps=1))
-    vit1 = make_pgd(ce_of(vit_fn), dataclasses.replace(cfg, steps=1))
-    steps = {"classifier_pgd_step_ms": lambda: pgd1(x, gen, resnet, labels),
-             "cw_step_ms": lambda: cw1(x, labels, resnet),
-             "vit_pgd_step_ms": lambda: vit1(xv, gen, vit, vit_labels),
-             "realism_ms": lambda: realism_scores(disc, batch)}
+
+    release_cache(torch)
+
+    # phase 6e's steps: one replay each of 2-step attacks (the first step
+    # of a program is eager, the second its first replay)
+    pgd2 = make_pgd(ce_of(fn), dataclasses.replace(cfg, steps=2))
+    cw2 = cw_of(CWConfig(steps=2))
+    vit2 = make_pgd(ce_of(vit_fn), dataclasses.replace(cfg, steps=2))
+    pgd2(x, gen, resnet, labels)
+    cw2(x, labels, resnet)
+    vit2(xv, gen, vit, vit_labels)
+    steps = {}
+    for metric, attack in (("classifier_pgd_step_ms", pgd2), ("cw_step_ms", cw2),
+                           ("vit_pgd_step_ms", vit2)):
+        steps[metric] = replay_step(list(attack.programs)[0])
+        steps[metric].release = attack.programs.release
+    steps["realism_ms"] = lambda: realism_scores(disc, batch)
     return launches, per_step, out, steps
 
 
@@ -2491,7 +3179,8 @@ def run_cli_path(torch, card):
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     runner.dispatch_attack = timed_dispatch
-    ops.reset_launch_counts()
+    reset_counts()
+    audit_s = AUDIT.seconds if AUDIT is not None else 0.0
     t0 = time.perf_counter()
     try:
         rc = attack_run.main(argv)
@@ -2499,7 +3188,8 @@ def run_cli_path(torch, card):
     finally:
         runner.dispatch_attack = dispatch
     cli_run_s = time.perf_counter() - t0
-    launches = ops.launch_counts()
+    audit_s = (AUDIT.seconds if AUDIT is not None else 0.0) - audit_s
+    launches = read_counts()
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
     if rc != 0:
         fail(f"attack_run returned {rc}")
@@ -2508,7 +3198,8 @@ def run_cli_path(torch, card):
     if bad:
         fail("; ".join(bad))
     log(f"  cli_run_s {cli_run_s:.3f} (pipeline build, load + align, 3 attacks with their "
-        f"evaluations and artifacts) [{card}]")
+        f"evaluations and artifacts; of it {audit_s:.3f} s the launch audit's profiled first "
+        f"replays) [{card}]")
     for attack in CLI_ATTACKS:
         steps = "" if attack == "blur" else f", {CLI_STEPS} steps"
         log(f"  {attack}_ms {attack_ms[attack]:.3f} (dispatch{steps}) [{card}]")
@@ -2534,7 +3225,8 @@ def run_cli_path(torch, card):
         fail("fuse wrote no montage")
     log(f"  invert: latents {lat.shape}, {len(inversions)} inversions; fuse: {demo}")
     shutil.rmtree(work, ignore_errors=True)
-    return launches, dict(cli_run_s=cli_run_s, align_s=align_s, cli_peak_memory_gib=peak_gib,
+    return launches, dict(cli_run_s=cli_run_s, cli_audit_s=audit_s, align_s=align_s,
+                          cli_peak_memory_gib=peak_gib,
                           landmark_px=lm_px, quad_px=quad_px, landmark_bf16_px=lm_bf16,
                           quad_bf16_px=quad_bf16,
                           **{f"cli_{a}_ms": v for a, v in attack_ms.items()})
@@ -2563,10 +3255,9 @@ PHASE_5G_KERNELS = {
 # single-device routes' ops on the same rows and are held bit-equal to
 # them, but for two. The patch route is held to the step written out on one
 # device (``_patch_reference``): the all-reduced weighted sum and the mean
-# over images round apart, by about 2e-7 on an H100. CW's resize to the
-# classifier's input is antialiased, and that backward has no
-# deterministic implementation (it accumulates with atomics): its pixels
-# within a few float32 ulps of 1, its best L2 within 1e-5 of itself.
+# over images round apart, by about 2e-7 on an H100. CW: its pixels
+# within a few float32 ulps of 1, its best L2 within 1e-5 of itself (set
+# while PyTorch's resize backward, with atomics, ran under it).
 SH_PATCH_ATOL, SH_PATCH_RTOL = 1e-5, 1e-4
 SH_CW_ATOL, SH_CW_L2_RTOL = 1e-6, 1e-5
 DISPATCH_CALLS = 200
@@ -2701,11 +3392,8 @@ def run_sharded_path(torch, card, pipe):
     # deterministic algorithms required (cuBLAS needs its workspace fixed
     # for that); an op that has none warns on stderr, and the equality
     # gates below decide whether its result still matched
-    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
-    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    determinism = contextlib.ExitStack()
+    determinism.enter_context(deterministic(torch))
     mesh = P.create_mesh(data=1)
     if tuple(mesh.shape) != (1, 1) or dist.get_backend() != "nccl":
         fail(f"phase 5g mesh {tuple(mesh.shape)} on {dist.get_backend()}, expected (1, 1) nccl")
@@ -2801,9 +3489,12 @@ def run_sharded_path(torch, card, pipe):
     }
     ms = {}
 
-    def run(name, sharded):
+    def run(name, sharded, timed=True):
         single_fn, sharded_fn, _, per = routes[name]
-        out, t, _ = _timed(torch, sharded_fn if sharded else single_fn)
+        if not timed:  # the counted run: its programs' first replays are profiled
+            return (sharded_fn if sharded else single_fn)()
+        with audit_paused(track=False):
+            out, t, _ = _timed(torch, sharded_fn if sharded else single_fn)
         ms[(name, sharded)] = t / per
         return out
 
@@ -2818,18 +3509,22 @@ def run_sharded_path(torch, card, pipe):
         eager_fused, _ = spatial_fused(pipe.drawer, lat5)
 
     # three counted runs, each with the counts set to 0 just before it and
-    # read just after: the sharded routes, the DCP resume, the exported programs
+    # read just after: the sharded routes, the DCP resume, the exported
+    # programs; the sharded and single-device routes are timed in turns
+    # after the first
     counts = {}
     torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    got = {name: run(name, True) for name in routes}
+    reset_counts()
+    got = {name: run(name, True, timed=False) for name in routes}
     torch.cuda.synchronize()
-    counts["sharded"] = ops.launch_counts()
+    counts["sharded"] = read_counts()
+    for name in routes:
+        run(name, True)
     for name in routes:
         run(name, False)
 
     # DCP: the white-box state written and restored, then a resumed run
-    ops.reset_launch_counts()
+    reset_counts()
     _, init, place = make_sharded_whitebox_step(pipe, wcfg, mesh)
     _, sub_p, targets_p, _ = prepare_whitebox_batch(x, target, None, mesh)
     state = init(*place(sub_p, targets_p))
@@ -2856,12 +3551,12 @@ def run_sharded_path(torch, card, pipe):
     resumed, _, resumed_from = run_whitebox_sharded_resumable(
         pipe, x, target, wcfg, None, mesh, resume_dir, checkpoint_every=1)
     torch.cuda.synchronize()
-    counts["resume"] = ops.launch_counts()
+    counts["resume"] = read_counts()
     if resumed_from != 1:
         failures.append(f"phase 5g: the white-box run resumed from step {resumed_from}, not 1")
 
     # the serving programs at 1024^2
-    ops.reset_launch_counts()
+    reset_counts()
     art = {}
     for name, export, args in (
             ("decode", lambda p: export_decode(pipe, p), (module_params(pipe.generator), codes)),
@@ -2889,7 +3584,7 @@ def run_sharded_path(torch, card, pipe):
         art[f"{name}_max_abs_err"], bad = held_failures(torch, f"exported {name}", out, want)
         failures.extend(bad)
     torch.cuda.synchronize()
-    counts["export"] = ops.launch_counts()
+    counts["export"] = read_counts()
 
     # each route against its single-device route, bit for bit (the patch
     # to its stated bound); the resumed run against the whole sharded run
@@ -2917,20 +3612,16 @@ def run_sharded_path(torch, card, pipe):
                 cw_successes=int(torch.isfinite(got["cw"][1]).sum()))
     failures.extend(sharded_launch_failures(counts))
 
-    torch.use_deterministic_algorithms(False)
-    if cublas is None:
-        os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
-    else:
-        os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    determinism.close()
     dist.destroy_process_group()
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     shutil.rmtree(work, ignore_errors=True)
 
     for name, (_, _, per, _) in routes.items():
         s, o = ms[(name, True)], ms[(name, False)]
         nums[f"sharded_{name}_ms"], nums[f"single_{name}_ms"] = s, o
         log(f"  {name}: sharded {s:.3f} ms per {per} against the single-device route's "
-            f"{o:.3f} ({(s / o - 1) * 100:+.1f}%; in turns: single, sharded, single timed) "
+            f"{o:.3f} ({(s / o - 1) * 100:+.1f}%; in turns: single, sharded counted, sharded "
+            f"timed, single timed) "
             f"[{card}]")
     log("  max |sharded - single-device|: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f" (the patch within {SH_PATCH_ATOL} + {SH_PATCH_RTOL} of max|single|, CW's pixels "
@@ -3060,10 +3751,13 @@ def run_family_path(torch, card, fam):
     from tpufusion_torch.attacks import (
         CWConfig, PatchConfig, PGDConfig, make_cw, make_pgd, make_patch_attack_step,
         init_patch_square, train_patch)
+    from tpufusion_torch.attacks.cw import cw_eager
     from tpufusion_torch.attacks.fusion_attack import (
         FusionAttackConfig, fgsm_on_fusion, make_fused_image_fn, make_fusion_attack,
         make_fusion_loss)
-    from tpufusion_torch.attacks.whitebox import PRESET_ATTACK_MAIN, WhiteboxConfig, run_whitebox
+    from tpufusion_torch.attacks.pgd import pgd_eager, pgd_random_start
+    from tpufusion_torch.attacks.whitebox import (
+        PRESET_ATTACK_MAIN, WhiteboxConfig, make_per_image_whitebox, run_eager, run_whitebox)
     from tpufusion_torch.cli import attack_run, fuse, invert
     from tpufusion_torch.configs import ITER_DICT, AttackRunConfig
     from tpufusion_torch.eval import benign_fusion, fused_image_metrics, partial_adv_fusion
@@ -3083,8 +3777,11 @@ def run_family_path(torch, card, fam):
     gen = torch.Generator(device="cuda").manual_seed(11)
     inputs = torch.rand((n, size, size, 3), generator=gen, device="cuda") * 2 - 1
     target = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
-    out, runs = {}, {}
+    out, runs, profiles = {}, {}, {}
     tag = f"{fam} {n} x {size}^2"
+
+    def seeded(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
 
     def in_ball(name, adv, eps):
         dev = (adv - inputs).abs().max().item()
@@ -3092,21 +3789,32 @@ def run_family_path(torch, card, fam):
             fail(f"{fam} {name}: adv leaves the eps-ball ({dev} > {eps})")
 
     def pgd_run(cfg, name):
-        """Warm-up step, then FGSM and ``FAMILY_STEPS`` PGD steps; returns
-        the per-step counts, ms, peak, trace and final loss."""
+        """Warm-up step, then FGSM and a ``FAMILY_STEPS``-step PGD attack
+        called twice (the second call timed); returns the per-step counts,
+        ms, peak, trace and final loss, the adversarial inputs and the
+        graph's numbers; the attack's program is profiled
+        (``profiles[name]``) and freed."""
         make_fusion_attack(pipe, dataclasses.replace(
             cfg, pgd=dataclasses.replace(cfg.pgd, steps=1)))(inputs, target, gen)
         adv1, tr1 = fgsm_on_fusion(pipe, mode=cfg.mode, objective=cfg.objective)(inputs, target)
-        before = ops.launch_counts()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        adv, trace = make_fusion_attack(pipe, dataclasses.replace(
-            cfg, pgd=dataclasses.replace(cfg.pgd, steps=FAMILY_STEPS)))(inputs, target, gen)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3 / FAMILY_STEPS
-        per_step = {k: v / FAMILY_STEPS for k, v in _diff(ops.launch_counts(), before).items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        full = dataclasses.replace(cfg, pgd=dataclasses.replace(cfg.pgd, steps=FAMILY_STEPS))
+        attack = make_fusion_attack(pipe, full)
+        pc = dataclasses.replace(full.pgd, targeted=full.targeted)
+        (adv, trace), g = graphed_timing(
+            torch, lambda: attack(inputs, target, seeded(16)), attack, FAMILY_STEPS,
+            eager=lambda: pgd_eager(make_fusion_loss(pipe, full), pc, inputs,
+                                    pgd_random_start(inputs, seeded(16), pc), target),
+            what=f"{fam} {name}")
+        log_graph(card, f"{fam} {name}", g)
+        ms, peak, per_step = g["step_ms"], g["peak_gib"], dict(g["per_replay"])
+        log(f"  -- {fam} {name}: one step (a graph replay) under torch.profiler")
+        profiles[name] = profile_step(torch, replay_step(list(attack.programs)[0]),
+                                      step_ms=ms, what=f"{fam} {name} step ms")
+        with uncounted():  # the timed graphs against their eager twin
+            hold = g["hold"]()
+        g["numbers"] = graph_numbers(name.split()[0], g, hold)
+        attack.programs.release()
+        hold_graphs(f"{fam} {name}", g, hold)
         with torch.no_grad():
             final = make_fusion_loss(pipe, cfg)(adv, target).item()
         trace = trace.float().cpu().tolist()
@@ -3126,29 +3834,30 @@ def run_family_path(torch, card, fam):
         if not min(trace[1:] + [final]) < trace[0]:
             fail(f"{fam} {name}: no iterate lowered the loss below the start: {trace} -> "
                  f"{final}")
-        return per_step, ms, peak, trace, final, adv
+        return per_step, ms, peak, trace, final, adv, g
 
     torch.cuda.synchronize()
-    ops.reset_launch_counts()
+    reset_counts()
     t_phase = time.perf_counter()
 
     # (a) fused forwards and arithmetic fusion PGD
     fused_fn = make_fused_image_fn(pipe)
     with torch.no_grad():
         fused_fn(inputs)  # warm-up
-        before = ops.launch_counts()
+        before = read_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(FAMILY_FWD):
             fused = fused_fn(inputs)
         torch.cuda.synchronize()
         out["fused_forward_ms"] = (time.perf_counter() - t) * 1e3 / FAMILY_FWD
-    runs["forwards"] = _diff(ops.launch_counts(), before)
+    runs["forwards"] = _diff(read_counts(), before)
     if not _fuse_ok(torch, fused, size=size):
         fail(f"{fam} fused image has shape {tuple(fused.shape)} or non-finite values")
-    per_step, ms, peak, trace, final, _ = pgd_run(FusionAttackConfig(), "arithmetic PGD")
+    per_step, ms, peak, trace, final, _, g = pgd_run(FusionAttackConfig(), "arithmetic PGD")
     runs["pgd_step"] = per_step
-    out.update(pgd_step_ms=ms, peak_memory_gib=peak, loss_trace=trace, final_loss=final)
+    out.update(pgd_step_ms=ms, peak_memory_gib=peak, loss_trace=trace, final_loss=final,
+               **{k.replace("arithmetic", "pgd", 1): v for k, v in g["numbers"].items()})
     log(f"  {fam}_fused_forward_ms {out['fused_forward_ms']:.3f} [{card}] (N={n}, {size}^2, "
         f"bf16, mean of {FAMILY_FWD})")
     log(f"  {fam}_pgd_step_ms {ms:.3f} [{card}] ({tag}, pixel objective, {FAMILY_STEPS} steps "
@@ -3160,10 +3869,10 @@ def run_family_path(torch, card, fam):
         sp_fused = make_fused_image_fn(pipe, "spatial")(inputs)
     if not _fuse_ok(torch, sp_fused, size=size):
         fail(f"{fam} spatial fused image has shape {tuple(sp_fused.shape)} or non-finite values")
-    per_step, ms, peak, trace, final, adv = pgd_run(sp_cfg, "spatial PGD")
+    per_step, ms, peak, trace, final, adv, g = pgd_run(sp_cfg, "spatial PGD")
     runs["spatial_step"] = per_step
     out.update(spatial_pgd_step_ms=ms, spatial_peak_memory_gib=peak, spatial_loss_trace=trace,
-               spatial_final_loss=final)
+               spatial_final_loss=final, **g["numbers"])
     with torch.no_grad():
         clean, attacked = pipe.get_latents(inputs), pipe.get_latents(adv)
         benign = {m: benign_fusion(pipe.drawer, clean, m) for m in FUSION_MODES}
@@ -3173,9 +3882,9 @@ def run_family_path(torch, card, fam):
                     for m in FUSION_MODES
                     for part in [partial_adv_fusion(pipe.drawer, clean, attacked, m)]}
 
-        before = ops.launch_counts()
+        before = read_counts()
         evaluate()
-        runs["eval"] = _diff(ops.launch_counts(), before)
+        runs["eval"] = _diff(read_counts(), before)
         torch.cuda.synchronize()
         t = time.perf_counter()
         evaluated = evaluate()
@@ -3202,9 +3911,20 @@ def run_family_path(torch, card, fam):
     # (c) the white-box attack
     wcfg = WhiteboxConfig(lr=WB_LR, n_iters=FAMILY_STEPS, weights=PRESET_ATTACK_MAIN)
     run_whitebox(pipe, inputs, target, dataclasses.replace(wcfg, n_iters=1))  # warm-up
-    before = ops.launch_counts()
-    (wb_adv, wb_trace), ms, peak = _timed(torch, lambda: run_whitebox(pipe, inputs, target, wcfg))
-    runs["whitebox"] = _diff(ops.launch_counts(), before)
+    wb_attack = make_per_image_whitebox(pipe, wcfg)
+    wb_eager = lambda: run_eager(pipe, wcfg, inputs, target, per_image=True)  # noqa: E731
+    (wb_adv, wb_trace), g = graphed_timing(torch, lambda: wb_attack(inputs, target), wb_attack,
+                                           FAMILY_STEPS, eager=wb_eager, what=f"{fam} white-box")
+    log_graph(card, f"{fam} whitebox", g)
+    ms, peak, runs["whitebox"] = g["step_ms"] * FAMILY_STEPS, g["peak_gib"], g["counts"]
+    log(f"  -- {fam} white-box: one step (a graph replay) under torch.profiler")
+    profiles["whitebox"] = profile_step(torch, replay_step(list(wb_attack.programs)[0]),
+                                        step_ms=g["step_ms"], what=f"{fam} whitebox step ms")
+    with uncounted():  # the timed graphs against their eager twin
+        hold = g["hold"]()
+    out.update(graph_numbers("whitebox", g, hold))
+    wb_attack.programs.release()
+    hold_graphs(f"{fam} white-box", g, hold)
     totals = wb_trace["total"].float().cpu()
     moved = (wb_adv - inputs).abs().max().item()
     adam_bound = FAMILY_STEPS * WB_LR * (1 - B1) / math.sqrt(1 - B2)
@@ -3253,10 +3973,22 @@ def run_family_path(torch, card, fam):
 
     ccfg = PGDConfig(eps=CLF_EPS, alpha=CLF_ALPHA, steps=FAMILY_STEPS)
     make_pgd(ce, dataclasses.replace(ccfg, steps=1))(inputs, gen, model, labels)  # warm-up
-    before = ops.launch_counts()
-    (cadv, ctrace), ms, peak = _timed(torch, lambda: make_pgd(ce, ccfg)(inputs, gen, model,
-                                                                     labels))
-    runs["classifier_pgd"] = _diff(ops.launch_counts(), before)
+    cpgd = make_pgd(ce, ccfg)
+
+    def c_eager():
+        return pgd_eager(ce, ccfg, inputs, pgd_random_start(inputs, seeded(15), ccfg), model,
+                         labels)
+
+    (cadv, ctrace), g = graphed_timing(
+        torch, lambda: cpgd(inputs, seeded(15), model, labels), cpgd, FAMILY_STEPS,
+        eager=c_eager, what=f"{fam} classifier PGD", atol=GRAPH_ATOL["classifier"])
+    log_graph(card, f"{fam} classifier pgd", g)
+    ms, peak, runs["classifier_pgd"] = g["step_ms"] * FAMILY_STEPS, g["peak_gib"], g["counts"]
+    with uncounted():  # the timed graphs against their eager twin
+        hold = g["hold"]()
+    out.update(graph_numbers("classifier_pgd", g, hold))
+    cpgd.programs.release()
+    hold_graphs(f"{fam} classifier PGD", g, hold)
     _check_pgd_run(torch, f"{fam} classifier PGD", inputs, cadv, ctrace)
     kind = type(model).__name__
     out.update(classifier_pgd_step_ms=ms / FAMILY_STEPS, classifier_pgd_peak_memory_gib=peak)
@@ -3266,9 +3998,21 @@ def run_family_path(torch, card, fam):
     if fam == "car":
         cw = make_cw(lambda im, m: clf_fn(m, im), CWConfig(steps=FAMILY_STEPS))
         make_cw(lambda im, m: clf_fn(m, im), CWConfig(steps=1))(inputs, labels, model)
-        before = ops.launch_counts()
-        (best_adv, best_l2), ms, peak = _timed(torch, lambda: cw(inputs, labels, model))
-        runs["cw"] = _diff(ops.launch_counts(), before)
+
+        def cw_twin():
+            return cw_eager(lambda im, m: clf_fn(m, im), CWConfig(steps=FAMILY_STEPS), inputs,
+                            labels, model)
+
+        (best_adv, best_l2), g = graphed_timing(
+            torch, lambda: cw(inputs, labels, model), cw, FAMILY_STEPS, eager=cw_twin,
+            what=f"{fam} CW", atol=GRAPH_ATOL["classifier"])
+        log_graph(card, f"{fam} cw", g)
+        ms, peak, runs["cw"] = g["step_ms"] * FAMILY_STEPS, g["peak_gib"], g["counts"]
+        with uncounted():  # the timed graphs against their eager twin
+            hold = g["hold"]()
+        out.update(graph_numbers("cw", g, hold))
+        cw.programs.release()
+        hold_graphs(f"{fam} CW", g, hold)
         short = cw_bookkeeping_failures(torch, inputs, best_adv, best_l2, f"{fam} CW")
         if short:
             fail("; ".join(short))
@@ -3295,19 +4039,23 @@ def run_family_path(torch, card, fam):
     log(f"  python -m tpufusion_torch.cli.attack_run {' '.join(argv)}")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
-    before = ops.launch_counts()
+    before = read_counts()
+    audit_s = AUDIT.seconds if AUDIT is not None else 0.0
     rc, ms, peak = _timed(torch, lambda: attack_run.main(argv))
-    runs["cli"] = _diff(ops.launch_counts(), before)
+    audit_s = (AUDIT.seconds if AUDIT is not None else 0.0) - audit_s
+    runs["cli"] = _diff(read_counts(), before)
     if rc != 0:
         fail(f"{fam} attack_run returned {rc}")
     bad = cli_run_failures(os.path.join(save, fam), FAMILY_CLI_ATTACKS, n, size,
                            pgd_attacks=FAMILY_CLI_PGD, dataset=fam)
     if bad:
         fail("; ".join(bad))
-    out.update(cli_run_s=ms / 1e3, cli_peak_memory_gib=peak - base / 2 ** 30)
+    out.update(cli_run_s=ms / 1e3, cli_audit_s=audit_s,
+               cli_peak_memory_gib=peak - base / 2 ** 30)
     log(f"  {fam}_cli_run_s {ms / 1e3:.3f} [{card}] (pipeline build, {n} images loaded, "
         f"{', '.join(FAMILY_CLI_ATTACKS)} at {FAMILY_CLI_STEPS} steps with their evaluations "
-        f"and artifacts); {fam}_cli_peak_memory_gib {out['cli_peak_memory_gib']:.3f}")
+        f"and artifacts; of it {audit_s:.3f} s the launch audit's profiled first replays); "
+        f"{fam}_cli_peak_memory_gib {out['cli_peak_memory_gib']:.3f}")
     if fam == "car":
         two = os.path.join(work, "two")
         os.makedirs(two)
@@ -3336,9 +4084,10 @@ def run_family_path(torch, card, fam):
     log(f"  fuse --dataset {fam}: {Image.open(demo).size} montage (5 parts and the fusion)")
     shutil.rmtree(work, ignore_errors=True)
 
-    launches = ops.launch_counts()
+    launches = read_counts()
     runs["all"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
+    out["profiles"] = profiles
     short = family_launch_failures(fam, plan, runs)
     if short:
         fail("; ".join(short))
@@ -3572,9 +4321,18 @@ def main(argv=None) -> None:
     parser.add_argument("--kernels-only", action="store_true",
                         help="run phases 1-3 (build, kernels against their plain versions, "
                              "their times) and stop, with no result line")
-    kernels_only = parser.parse_args(argv).kernels_only
+    parser.add_argument("--first-calls", action="store_true",
+                        help="build the kernels, then time each attack the runner dispatches "
+                             "at its config's step count on a new attack object against its "
+                             "eager twin, and stop, with no result line")
+    args = parser.parse_args(argv)
+    kernels_only = args.kernels_only
     if not os.path.isfile(os.path.join(HERE, "tpufusion_torch", "__init__.py")):
         fail("tpufusion_torch/ not found beside chip_smoke.py: run it from a checkout")
+    # CUPTI torn down after each torch.profiler session: left on, it slows
+    # every later graph replay on the host and the device, and this script
+    # profiles between timings
+    os.environ["TEARDOWN_CUPTI"] = "1"
     try:
         import torch
     except ImportError:
@@ -3603,13 +4361,20 @@ def main(argv=None) -> None:
             if "wgmma.mma_async instructions are serialized" in line:
                 log(f"  {source}.cu ptxas: {line.strip()[:200]}")
     check_sass(_lib)
+    out_dir = os.path.join(HERE, "runs", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    if args.first_calls:
+        log("== first calls: each dispatched attack at its config's steps, FFHQ 1024^2, N=5")
+        first = run_first_calls(torch, card)
+        with open(os.path.join(out_dir, "first_calls.json"), "w") as f:
+            json.dump(dict(card=card, first_calls=first), f, indent=1)
+        log(card)
+        return
 
     log("== 3. kernels against their plain versions")
     records = []
     floor = launch_floor(torch, floor_lib, card)
     check_kernels(torch, records, floor)
-    out_dir = os.path.join(HERE, "runs", "chip_smoke")
-    os.makedirs(out_dir, exist_ok=True)
     if kernels_only:
         with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
             json.dump(dict(card=card, floor=floor, records=records), f, indent=1)
@@ -3618,6 +4383,12 @@ def main(argv=None) -> None:
 
     log("== 4. small-input reference (card vs CPU)")
     check_small_reference(torch)
+
+    # from here on every step program's first replay is profiled and its
+    # kernel launches counted (LaunchAudit): the counts of the main paths
+    # read each replay at its measured counts
+    global AUDIT
+    AUDIT = LaunchAudit(torch).install()
 
     log("== 5. main path: FFHQ 1024^2 fusion attack, full width")
     launches, per_step, main_numbers, attack_args = run_main_path(torch, card)
@@ -3646,21 +4417,29 @@ def main(argv=None) -> None:
     from tpufusion_torch.attacks.fusion_attack import make_fusion_attack
 
     pipe, cfg, inputs, target, gen = attack_args
-    pgd_step = make_fusion_attack(pipe, dataclasses.replace(
-        cfg, pgd=dataclasses.replace(cfg.pgd, steps=1)))
-    log("== 6. where the time goes: one PGD step under torch.profiler")
-    profile = profile_step(torch, lambda: pgd_step(inputs, target, gen),
+    two = dataclasses.replace(cfg, pgd=dataclasses.replace(cfg.pgd, steps=2))
+    pgd_step = make_fusion_attack(pipe, two)
+    pgd_step(inputs, target, gen)
+    log("== 6. where the time goes: one PGD step (a graph replay) under torch.profiler")
+    profile = profile_step(torch, replay_step(list(pgd_step.programs)[0]),
                            step_ms=main_numbers["pgd_step_ms"], what="pgd_step_ms")
-    log("== 6b. where the time goes: one white-box step under torch.profiler")
-    wb_profile = profile_step(torch, wb_step, step_ms=main_numbers["whitebox_step_ms"],
-                              what="whitebox_step_ms")
-    log("== 6c. where the time goes: one spatial PGD step under torch.profiler; the blender")
+    pgd_step.programs.release()
+    log("== 6b. where the time goes: one white-box step (a graph replay) under torch.profiler")
+    wb_attack = wb_step()
+    wb_profile = profile_step(torch, replay_step(list(wb_attack.programs)[0]),
+                              step_ms=main_numbers["whitebox_step_ms"], what="whitebox_step_ms")
+    wb_attack.programs.release()
+    log("== 6c. where the time goes: one spatial PGD step (a graph replay) under "
+        "torch.profiler; the blender")
     sp_cfg, sp_inputs, sp_target, sp_gen = sp_args
     sp_step = make_fusion_attack(pipe, dataclasses.replace(
-        sp_cfg, pgd=dataclasses.replace(sp_cfg.pgd, steps=1)))
-    sp_profile = profile_step(torch, lambda: sp_step(sp_inputs, sp_target, sp_gen),
+        sp_cfg, pgd=dataclasses.replace(sp_cfg.pgd, steps=2)))
+    sp_step(sp_inputs, sp_target, sp_gen)
+    sp_profile = profile_step(torch, replay_step(list(sp_step.programs)[0]),
                               step_ms=main_numbers["spatial_pgd_step_ms"],
                               what="spatial_pgd_step_ms")
+    sp_step.programs.release()
+    release_cache(torch)
     sp_profile["blender"] = time_blender(torch, card, pipe)
     log(f"== 6d. where the time goes: one patch batch ({PATCH_COUNT} inner steps) under "
         "torch.profiler")
@@ -3680,6 +4459,9 @@ def main(argv=None) -> None:
         with torch.no_grad() if metric == "realism_ms" else contextlib.nullcontext():
             cl_profile[metric] = profile_step(torch, run, step_ms=main_numbers[metric],
                                               what=metric)
+        getattr(run, "release", lambda: None)()
+    del cl_step
+    release_cache(torch)
 
     # after the main paths, so that a training-style backward's allocations
     # and cuDNN plans leave their times and peak memories as they were
@@ -3714,6 +4496,7 @@ def main(argv=None) -> None:
                                   "cli": (cli_launches, None),
                                   **{run: (c, None) for run, c in sh_launches.items()},
                                   **family_runs})
+    main_numbers["launch_audit_s"] = AUDIT.seconds
     with open(os.path.join(out_dir, "chip_smoke_kernels.json"), "w") as f:
         json.dump(dict(card=card, floor=floor, records=records, kernels=kernels,
                        main=main_numbers,
@@ -3721,6 +4504,9 @@ def main(argv=None) -> None:
                        spatial_profile=sp_profile,
                        patch_profile=pa_profile, classifier_profile=cl_profile,
                        weight_grad_chain=chain), f, indent=1)
+    log(f"  the launch audit profiled {AUDIT.audited} step programs' first "
+        f"replays in {AUDIT.seconds:.1f} s, each replay's kernel launches equal to its "
+        f"program's count")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,10 @@
 and ``white_box_patch`` with the JAX package.
 
 - ``resize_bilinear`` down and up against ``jax.image.resize`` (1e-6; the
-  antialiased shrink is the function that ``paste_patch`` needs);
+  antialiased shrink is the function that ``paste_patch`` needs), and its
+  gradient, two matrix products with the weights read off the identity,
+  against PyTorch's own backward and JAX's (1e-6 of the largest entry:
+  float32 sums of the same terms in another order);
 - the separable blur against JAX's 2-D blur at k in {3, 5, 13} and an
   explicit sigma (1e-6), and the even-k error;
 - ``dp_noise`` with JAX's uniform draw supplied (1e-6), and its statistics;
@@ -62,6 +65,27 @@ def test_resize_bilinear_matches_jax(src, dst):
                                                                             dst, src)),
                                rtol=0, atol=1e-6)
     assert im.resize_bilinear(_t(x).bfloat16(), dst, dst).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("src,dst,dst_w", [(64, 16, 16), (32, 10, 21), (10, 32, 32),
+                                            (32, 32, 32), (48, 24, 7)])
+def test_resize_bilinear_gradient(src, dst, dst_w):
+    x = _images(2, (2, src, src, 3))
+    g = _images(3, (2, dst, dst_w, 3))
+    xt = _t(x).requires_grad_()
+    (im.resize_bilinear(xt, dst, dst_w) * _t(g)).sum().backward()
+    xp = _t(x).requires_grad_()
+    y = torch.nn.functional.interpolate(xp.permute(0, 3, 1, 2), size=(dst, dst_w),
+                                        mode="bilinear", align_corners=False, antialias=True)
+    (y.permute(0, 2, 3, 1) * _t(g)).sum().backward()
+    _, vjp = jax.vjp(lambda a: jim.resize_bilinear(a, dst, dst_w), jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(xt.grad.numpy(), xp.grad.numpy(), rtol=0, atol=1e-6 * scale)
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=0, atol=1e-6 * scale)
+    rows = im.resize_weights(src, dst_w, "cpu")
+    assert rows.shape == (dst_w, src) and rows is im.resize_weights(src, dst_w, "cpu")
+    np.testing.assert_allclose(rows.sum(1).numpy(), 1.0, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("k,sigma", [(3, 0.0), (5, 0.0), (13, 0.0), (5, 0.5), (5, 3.0)])

@@ -747,3 +747,176 @@ def test_numbers_carry_the_host_and_floor_readings(smoke):
     assert out["event_ms"] == pytest.approx(0.1) and out["warm_ms"] == pytest.approx(0.06)
     assert out["floor_ms"] == 0.001 and out["floor_host_us"] == 4.0
     assert "graph_ms" not in out
+
+
+# the attack loops' gates: a graph replay against its eager twin
+
+
+def test_graph_failures_hold_results_bit_for_bit(smoke):
+    import numpy as np
+
+    got = (torch.ones(2, 3), {"total": torch.arange(4.0), "l2": torch.tensor([1.0, math.inf])},
+           dict(adv_input=np.zeros((1, 2), np.float32)))
+    want = (torch.ones(2, 3), {"total": torch.arange(4.0), "l2": torch.tensor([1.0, math.inf])},
+            dict(adv_input=np.zeros((1, 2), np.float32)))
+    assert smoke.graph_failures(torch, "pgd", got, want) == (0.0, [])
+    off = (got[0] + 1e-7, got[1], got[2])
+    err, fails = smoke.graph_failures(torch, "pgd", off, want)
+    assert err > 0 and len(fails) == 1 and "eager twin" in fails[0]
+    err, fails = smoke.graph_failures(torch, "cw", off, want, atol=1e-6)
+    assert fails == [] and err <= 1e-6
+    # a trace entry missing, an inf where the twin is finite
+    assert smoke.graph_failures(torch, "pgd", got[:2], want)[1]
+    bad = (got[0], {"total": got[1]["total"], "l2": torch.tensor([math.inf, math.inf])}, got[2])
+    assert smoke.graph_failures(torch, "cw", bad, want, atol=1e-6)[1]
+
+
+def test_replay_launches_must_equal_an_eager_step(smoke):
+    eager = {"styled_conv": 9.0, "conv3x3_fwd": 2.0, "pgd_update": 1.0, "fused_adam": 0.0}
+    same = {"styled_conv": 9, "conv3x3_fwd": 2, "pgd_update": 1, "fused_adam": 0}
+    assert smoke.replay_launch_failures("pgd", same, eager) == []
+    short = smoke.replay_launch_failures("pgd", dict(same, pgd_update=0), eager)
+    assert len(short) == 1 and "pgd_update 0" in short[0]
+    # a replay that counted the capture's launches twice
+    assert smoke.replay_launch_failures("pgd", {k: 2 * v for k, v in same.items()}, eager)
+
+
+def test_rewound_replays_start_their_counters_at_zero(smoke):
+    from tpufusion_torch.core.graphs import StepProgram
+
+    def body(state, inputs):
+        state["trace"].index_copy_(0, state["idx"].view(1), state["x"].sum().view(1))
+        state["x"].add_(inputs["d"])
+        state["idx"].add_(1)
+
+    prog = StepProgram(body, dict(x=torch.zeros(2), trace=torch.zeros(2),
+                                  idx=torch.zeros((), dtype=torch.int64)),
+                       dict(d=torch.ones(2)), limit=2)
+    step = smoke.replay_step(prog)
+    for _ in range(5):  # past the limit: rewound each time it is reached
+        step()
+    assert prog.replays == 5 and int(prog.state["idx"]) == 1
+    smoke.rewind(prog)
+    assert prog.taken == 0 and int(prog.state["idx"]) == 0
+    # the floats are the end state's, the step counters 0
+    assert prog.state["x"].tolist() == [5.0, 5.0]
+
+
+def test_deterministic_restores_the_flags(smoke):
+    cudnn = torch.backends.cudnn
+    flags = cudnn.deterministic, cudnn.benchmark, torch.are_deterministic_algorithms_enabled()
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    with smoke.deterministic(torch):
+        assert cudnn.deterministic and not cudnn.benchmark
+        assert torch.are_deterministic_algorithms_enabled()
+        assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    assert (cudnn.deterministic, cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled()) == flags
+    assert os.environ.get("CUBLAS_WORKSPACE_CONFIG") == env
+
+
+# the launch audit: what a replay launches, measured by the profiler
+
+STYLED_ROW = "void tf::conv3x3_wgmma_kernel<true, tf::WgTile<16, 16, 2, 1, 4, 32, 32, 8, 1, 1>>"
+CONV_ROW = "void tf::conv3x3_wgmma_kernel<false, tf::WgTile<8, 16, 2, 2, 1, 64, 32, 3, 0, 1>>"
+PGD_ROW = "void tf_stream::stream_reg_kernel<float, 3, 1, (anonymous namespace)::PgdOp<float>, 1>"
+
+
+def test_kernel_counts_read_each_wrappers_kernel(smoke):
+    rows = [(STYLED_ROW, 1.0, 9), (CONV_ROW, 0.5, 4), (PGD_ROW, 0.1, 1),
+            ("void at::native::elementwise_kernel<128, 4>", 2.0, 404),
+            ("void tf::sum_partials_kernel", 0.01, 1)]
+    got = smoke.kernel_counts(rows)
+    assert got == {"styled_conv": 9, "conv3x3_fwd+dgrad": 4, "conv3x3_wgrad": 0,
+                   "pgd_update": 1, "fused_adam": 0}
+    booked = smoke.audited_counts({"styled_conv": 9, "conv3x3_fwd": 2, "conv3x3_dgrad": 2,
+                                   "conv3x3_wgrad": 0, "pgd_update": 1, "fused_adam": 0})
+    assert smoke.replay_count_failures("pgd", got, booked) == []
+    short = smoke.replay_count_failures("pgd", dict(got, pgd_update=0), booked)
+    assert len(short) == 1 and "pgd_update 0" in short[0]
+
+
+@pytest.fixture
+def audited(smoke, monkeypatch):
+    """The audit installed over ``StepProgram.run`` with the card stubbed:
+    programs on CPU tensors read as the card's, a capture runs the body once
+    (its wrappers count, as at a capture), a replay runs nothing, and the
+    profiled replay gives ``rows[0]``."""
+    import contextlib
+
+    from tpufusion_torch.core import graphs
+
+    stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: types.SimpleNamespace(
+        replay=lambda: None, reset=lambda: None, pool=lambda: None))
+    audit = smoke.LaunchAudit(torch).install()
+    rows = [[(STYLED_ROW, 1.0, 9), (PGD_ROW, 0.1, 1)]]
+    monkeypatch.setattr(audit, "_profile_replay",
+                        lambda prog: (audit.orig(prog, 1), rows[0])[1])
+    monkeypatch.setattr(smoke, "AUDIT", audit)
+
+    def program(limit=8):
+        from tpufusion_torch import ops
+
+        def body(state, inputs):
+            ops.add_launch_counts({"styled_conv": 9, "pgd_update": 1})
+            state["x"].add_(1)
+        prog = graphs.StepProgram(body, dict(x=torch.zeros(2)), {}, limit=limit)
+        prog.device = torch.device("cuda")
+        return prog
+    yield audit, program, rows
+    audit.uninstall()
+    from tpufusion_torch import ops
+
+    ops.reset_launch_counts()
+
+
+def test_launch_audit_reads_replays_at_their_measured_counts(smoke, audited):
+    audit, program, rows = audited
+    smoke.reset_counts()
+    prog = program()
+    prog.run(4)  # one eager step, the capture, a profiled replay, two replays
+    assert audit.audited == 1 and audit.per_replay[prog]["styled_conv"] == 9
+    counts = smoke.read_counts()
+    assert counts["styled_conv"] == 36 and counts["pgd_update"] == 4
+    assert audit.booked["styled_conv"] == 27 == audit.measured["styled_conv"]
+    prog.run(2)  # measured already: no profile
+    assert audit.audited == 1 and smoke.read_counts()["pgd_update"] == 6
+    # the launches of a comparison leave the counts as they were
+    with smoke.uncounted():
+        prog.run(2)
+    assert smoke.read_counts()["pgd_update"] == 6
+
+
+def test_launch_audit_waits_out_a_paused_call(smoke, audited):
+    audit, program, rows = audited
+    smoke.reset_counts()
+    prog = program()
+    with smoke.audit_paused():
+        prog.run(3)
+    assert audit.audited == 0 and audit.pending[prog] == 2
+    with pytest.raises(SystemExit):
+        smoke.read_counts()  # replays in the counted run, never measured
+    assert audit.measure(prog) == 1 and audit.measure(prog) == 0
+    assert not audit.pending and smoke.read_counts()["styled_conv"] == 36
+    # untracked outside a counted run, refused inside one
+    other = program()
+    with smoke.audit_paused(track=False):
+        other.run(2)
+    with pytest.raises(SystemExit):
+        smoke.read_counts()
+    smoke.reset_counts()
+    assert smoke.read_counts()["styled_conv"] == 0
+
+
+def test_launch_audit_fails_a_replay_that_launches_otherwise(smoke, audited):
+    audit, program, rows = audited
+    rows[0] = [(STYLED_ROW, 1.0, 8), (PGD_ROW, 0.1, 1)]
+    with pytest.raises(SystemExit):
+        program().run(2)
+

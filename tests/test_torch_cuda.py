@@ -220,9 +220,10 @@ def test_fused_adam_kernel(cuda, shape, count):
     rn = lambda: torch.randn(shape, generator=cuda, device="cuda")  # noqa: E731
     x, g, mu, nu = rn(), rn(), rn() * 0.1, rn().square() * 0.01
     bc1, bc2 = au.bias_corrections(count)
+    table, step = au.bias_table("cuda"), au.step_index("cuda", count - 1)
     want = au.adam_update_plain(x.clone(), g, mu.clone(), nu.clone(), 1e-2, bc1, bc2)
     got = (x.clone(), g, mu.clone(), nu.clone())
-    au.adam_update_kernel(*got, 1e-2, bc1, bc2)
+    au.adam_update_kernel(*got, 1e-2, table, step)
     for a, b in zip((got[0], got[2], got[3]), want):
         _close(a, b, torch.float32, tol=0.0)
     # views 4 bytes off 16-byte alignment (a scalar head, then the body
@@ -232,7 +233,7 @@ def test_fused_adam_kernel(cuda, shape, count):
     for views in (off, [t.reshape(-1).clone() if i != 1 else o
                         for i, (t, o) in enumerate(zip((x, g, mu, nu), off))]):
         want = au.adam_update_plain(*[t.clone() for t in views], 1e-2, bc1, bc2)
-        au.adam_update_kernel(*views, 1e-2, bc1, bc2)
+        au.adam_update_kernel(*views, 1e-2, table, step)
         for a, b in zip((views[0], views[2], views[3]), want):
             _close(a, b, torch.float32, tol=0.0)
 
@@ -245,3 +246,171 @@ def test_fused_adam_counts_launches(cuda):
     assert x2 is x and st["count"] == 1 and au.fused_adam.launches == before + 1
     with pytest.raises(TypeError):
         au.fused_adam(x.bfloat16(), x.bfloat16(), au.adam_init(x.bfloat16()), 1e-2)
+
+
+def test_fused_adam_device_count_over_steps(cuda):
+    """A device step count (``adam_init(on_device=True)``): the kernel reads
+    row ``count`` of the bias table, then the count advances in place; bit
+    for bit the plain twin with the host's corrections, steps 1..n."""
+    shape = (2, 33, 17, 3)
+    x0 = torch.randn(shape, generator=cuda, device="cuda")
+    xa, xb = x0.clone(), x0.clone()
+    sa, sb = au.adam_init(xa, on_device=True), au.adam_init(xb)
+    for t in range(1, 8):
+        g = torch.randn(shape, generator=cuda, device="cuda")
+        au.fused_adam(xa, g, sa, 1e-2)
+        au.adam_update_plain(xb, g, sb["mu"], sb["nu"], 1e-2, *au.bias_corrections(t))
+        for a, b in ((xa, xb), (sa["mu"], sb["mu"]), (sa["nu"], sb["nu"])):
+            _close(a, b, torch.float32, tol=0.0)
+    assert int(sa["count"]) == 7
+
+
+# the attack loops' CUDA graphs (``core/graphs.py``) against the eager twins
+
+
+@pytest.fixture
+def deterministic(cuda):
+    import os
+
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield cuda
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = flag
+    if env is None:
+        os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+    else:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+
+
+def _tree_equal(a, b):
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_tree_equal(u, v) for u, v in zip(a, b))
+    return torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+@pytest.fixture
+def small_pipeline(deterministic):
+    from tpufusion_torch.pipeline import create_test_pipeline
+
+    return create_test_pipeline("ffhq", device="cuda")
+
+
+def test_pgd_graph_equals_the_eager_loop(small_pipeline):
+    import dataclasses
+
+    from tpufusion_torch import ops
+    from tpufusion_torch.attacks.fusion_attack import (
+        FusionAttackConfig, make_fusion_attack, make_fusion_loss)
+    from tpufusion_torch.attacks.pgd import pgd_eager, pgd_random_start
+
+    p = small_pipeline
+    g = torch.Generator(device="cuda").manual_seed(1)
+    s = p.image_size
+    x = torch.rand((2, s, s, 3), generator=g, device="cuda") * 2 - 1
+    t = torch.rand((1, s, s, 3), generator=g, device="cuda") * 2 - 1
+    cfg = FusionAttackConfig(pgd=dataclasses.replace(FusionAttackConfig().pgd, steps=3))
+    attack = make_fusion_attack(p, cfg)
+    got = attack(x, t, torch.Generator(device="cuda").manual_seed(2))
+    (prog,) = list(attack.programs)
+    assert prog.graph is not None and prog.launches["pgd_update"] == 1
+    pc = dataclasses.replace(cfg.pgd, targeted=True)
+    start = pgd_random_start(x, torch.Generator(device="cuda").manual_seed(2), pc)
+    ops.reset_launch_counts()
+    want = pgd_eager(make_fusion_loss(p, cfg), pc, x, start, t)
+    eager = ops.launch_counts()
+    assert _tree_equal(got, want)
+    # a second call replays: the counts read per step as the eager loop's
+    ops.reset_launch_counts()
+    again = attack(x, t, torch.Generator(device="cuda").manual_seed(2))
+    assert ops.launch_counts() == eager and _tree_equal(again, want)
+    attack.programs.release()
+
+
+def test_whitebox_graph_equals_the_eager_loop(small_pipeline):
+    from tpufusion_torch.attacks import whitebox as wb
+
+    p = small_pipeline
+    g = torch.Generator(device="cuda").manual_seed(3)
+    s = p.image_size
+    x = torch.rand((3, s, s, 3), generator=g, device="cuda") * 2 - 1
+    t = torch.rand((1, s, s, 3), generator=g, device="cuda") * 2 - 1
+    for kw in (dict(), dict(grad_accum=2, snapshot_every=2, execution="stepwise")):
+        cfg = wb.WhiteboxConfig(lr=1e-2, n_iters=5, **kw)
+        got = wb.make_per_image_whitebox(p, cfg)(x, t)
+        assert _tree_equal(got, wb.run_eager(p, cfg, x, t, per_image=True)), kw
+
+
+def test_cw_graph_equals_the_eager_loop(deterministic):
+    from tpufusion_torch.attacks.cw import CWConfig, cw_eager, make_cw
+    from tpufusion_torch.models import classifiers as tc
+    from tpufusion_torch.models.resnet import ResNet
+
+    model = ResNet(2, width=8, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(4))
+    model.requires_grad_(False)
+    fn = tc.resnet_logits_fn(32)
+    x = torch.rand((4, 48, 48, 3), generator=deterministic, device="cuda") * 1.6 - 0.8
+    with torch.no_grad():
+        labels = fn(model, x).argmax(-1)
+    cfg = CWConfig(c=100.0, steps=10)
+    got = make_cw(lambda im, m: fn(m, im), cfg)(x, labels, model)
+    want = cw_eager(lambda im, m: fn(m, im), cfg, x, labels, model)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-6
+    assert torch.equal(torch.isfinite(got[1]), torch.isfinite(want[1]))
+
+
+def test_resize_gradient_is_deterministic_on_the_card(deterministic):
+    """The classifiers' antialiased resize at the FFHQ attack's shape
+    (5 x 1024^2 -> 256^2): its backward warns of no atomics, gives the same
+    bits twice, and agrees with PyTorch's own backward (1e-6 of the largest
+    entry, float32 sums in another order)."""
+    import warnings
+
+    import torch.nn.functional as F
+
+    from tpufusion_torch.core.imaging import resize_bilinear
+
+    x = torch.rand((5, 1024, 1024, 3), generator=deterministic, device="cuda") * 2 - 1
+    g = torch.randn((5, 256, 256, 3), generator=deterministic, device="cuda")
+
+    def grad():
+        xt = x.clone().requires_grad_()
+        (resize_bilinear(xt, 256, 256) * g).sum().backward()
+        return xt.grad
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*deterministic")
+        first = grad()
+        assert torch.equal(first, grad())
+    torch.use_deterministic_algorithms(False)
+    xp = x.clone().requires_grad_()
+    y = F.interpolate(xp.permute(0, 3, 1, 2), size=(256, 256), mode="bilinear",
+                      align_corners=False, antialias=True)
+    (y.permute(0, 2, 3, 1) * g).sum().backward()
+    err = (first - xp.grad).abs().max().item()
+    assert err <= 1e-6 * xp.grad.abs().max().item(), err
+
+
+def test_a_body_that_reads_the_device_raises_at_capture(cuda):
+    from tpufusion_torch.core.graphs import WARMUP, StepProgram
+
+    calls = []
+
+    def body(state, inputs):
+        calls.append(1)
+        state["x"].add_(state["x"].sum().item())
+
+    x = torch.ones(4, device="cuda")
+    prog = StepProgram(body, dict(x=x), {}, limit=WARMUP + 2)
+    with pytest.raises(Exception):
+        prog.run(WARMUP + 2)
+    # the warm-up steps and the failed capture, and no eager run after it
+    assert len(calls) == WARMUP + 1 and prog.graph is None
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full((4,), 5.0 ** WARMUP, device="cuda"))

@@ -58,7 +58,8 @@ def test_kernels_launch_on_their_tensors_card(second_card):
     xa, xb = adv.clone(), adv.clone()
     sa, sb = au.adam_init(xa), au.adam_init(xb)
     bc1, bc2 = au.bias_corrections(1)
-    au.adam_update_kernel(xa, grad, sa["mu"], sa["nu"], 1e-2, bc1, bc2)
+    au.adam_update_kernel(xa, grad, sa["mu"], sa["nu"], 1e-2, au.bias_table(dev),
+                          au.step_index(dev, 0))
     au.adam_update_plain(xb, grad, sb["mu"], sb["nu"], 1e-2, bc1, bc2)
     assert torch.equal(xa, xb)
     torch.cuda.synchronize(dev)

@@ -9,8 +9,9 @@ take.
   pixels move at most lr a step;
 - a saved patch is reused; an unknown attack raises; a one-device mesh is
   the single-device path, and ``whitebox_grad_accum > 1`` with a
-  multi-device mesh raises JAX's error; the white-box executor rules are
-  JAX's;
+  multi-device mesh raises JAX's error; ``resolve_whitebox_execution`` is
+  JAX's, and with ``whitebox_grad_accum > 1`` both executors run and agree
+  (the JAX package refuses an explicit scan there);
 - snapshots and ``whitebox_grad_accum`` through ``run_experiment``, R+FGSM's
   recorded semantics, the hybrid splice, realism scores, the mid-run flush
   with ``adv_override``, the transfer chain and ``generate_inputs``.
@@ -144,10 +145,14 @@ def test_unknown_attack_mesh_and_execution_rules(tiny):
             j_runner.resolve_whitebox_execution(execution, snaps)
     with pytest.raises(ValueError, match="whitebox_execution"):
         runner.resolve_whitebox_execution("fast", True)
-    bad = AttackRunConfig(dataset_name="church", n_iters=1, whitebox_grad_accum=2,
-                          whitebox_execution="scan")
-    with pytest.raises(ValueError, match="grad_accum"):
-        runner.dispatch_attack(p, "white_box_target", inputs, target, bad, torch.Generator())
+    # both executors walk the grad_accum chunks (the JAX package refuses an
+    # explicit scan here: its scan cannot); they give the same bits
+    advs = [runner.dispatch_attack(
+        p, "white_box_target", inputs, target,
+        AttackRunConfig(dataset_name="church", n_iters=1, whitebox_grad_accum=2,
+                        whitebox_execution=execution), torch.Generator())[0]
+        for execution in ("scan", "stepwise")]
+    assert torch.equal(advs[0], advs[1]) and not torch.equal(advs[0], inputs)
 
 
 def test_whitebox_snapshots_and_grad_accum_through_the_runner(tiny, tmp_path):

@@ -259,7 +259,8 @@ def test_adam_kernel_refuses_before_any_build(no_build, case):
     planes = {k: _planes(2, 4, 4, 3) for k in ("x", "g", "mu", "nu")}
     args = {**planes, **change}
     with pytest.raises(exc, match=msg):
-        au.adam_update_kernel(**args, lr=1e-2, bc1=0.1, bc2=0.001)
+        au.adam_update_kernel(**args, lr=1e-2, table=au.bias_table("cpu"),
+                              step=au.step_index("cpu", 0))
     assert no_build == []
     if case != "meta":
         assert all(not t.any() for t in args.values())

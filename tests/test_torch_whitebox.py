@@ -264,9 +264,9 @@ def test_batch_mean_paths_refuse_grad_accum(pipelines):
     assert [wb.default_n_iters(s) for s in (256, 512, 1024)] == [50, 100, 100]
     for name in PRESETS:
         assert dataclasses.asdict(PRESETS[name]) == dataclasses.asdict(J_PRESETS[name])
-    # every field but JAX's executor switch, with the same default
+    # every field, JAX's executor switch too, with the same default
     fields = {f.name for f in dataclasses.fields(wb.WhiteboxConfig)}
-    assert fields == {f.name for f in dataclasses.fields(jwb.WhiteboxConfig)} - {"execution"}
+    assert fields == {f.name for f in dataclasses.fields(jwb.WhiteboxConfig)}
     assert wb.WhiteboxConfig() == wb.WhiteboxConfig(
         **{k: getattr(jwb.WhiteboxConfig(), k) for k in fields if k != "weights"},
         weights=wb.PRESET_ATTACK_MAIN)

@@ -4,7 +4,9 @@ pipeline (port of ``tpufusion/attacks/fusion_attack.py``):
     adv inputs (N,S,S,3) -> pool -> e4e -> [mean W+ | hierarchy blend]
     -> StyleGAN2 synthesis -> fused image -> pixel MSE or VGG objective
 
-The PGD loop perturbs all N inputs jointly under one L-inf ball.
+The PGD loop perturbs all N inputs jointly under one L-inf ball. On the card
+each step is one CUDA graph replay (``attacks/pgd.py``); the attack object
+caches its program.
 """
 
 from __future__ import annotations
@@ -71,13 +73,16 @@ def make_fusion_attack(pipeline: FusionPipeline, config: FusionAttackConfig):
 
     ``inputs``: the (N, S, S, 3) fusion batch; ``target_fused``: a (1, S, S, 3)
     image the fused output should approach (targeted) or flee (untargeted).
+    ``attack.programs`` holds its step programs (``release()`` frees them).
     """
     loss_fn = make_fusion_loss(pipeline, config)
-    pgd = make_pgd(loss_fn, dataclasses.replace(config.pgd, targeted=config.targeted))
+    pgd = make_pgd(loss_fn, dataclasses.replace(config.pgd, targeted=config.targeted),
+                   fixed=(pipeline,))
 
     def attack(inputs, target_fused, generator=None):
         return pgd(inputs, generator, target_fused)
 
+    attack.programs = pgd.programs
     return attack
 
 

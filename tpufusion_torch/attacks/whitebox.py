@@ -18,10 +18,17 @@ latents and VGG taps) is computed once; each iteration is one forward
 and one Adam step, the fused ``ops.adam_update.fused_adam`` kernel on the
 card.
 
-One Python loop serves both of the JAX package's executors (its whole-loop
-``scan`` program and its stepwise host loop), so ``WhiteboxConfig`` has no
-``execution`` field. The loop never waits on the device except to move
-snapshot frames to the host.
+The JAX package has two executors under ``execution``: ``"scan"``, the
+whole loop as one program, and ``"stepwise"``, one jitted step driven by a
+host loop. Here both run one step program per ``grad_accum`` chunk
+(``core.graphs.StepProgram``: static ``x``, Adam moments and device step
+count, a (..., n_iters) trace per term and a device step index; the
+reference bundle as static inputs; the chunks' programs share one memory
+pool). On the card a program's first step runs eagerly and every later
+step replays the step captured once as a CUDA graph. ``"scan"`` reads
+nothing on the host until the loop ends (snapshot frames stay on the
+device); ``"stepwise"`` moves each snapshot frame to the host as it comes.
+``run_eager``, the Python loop, is the programs' plain twin.
 
 Two semantics, as in the JAX package:
 - ``make_whitebox_attack`` / ``run_whitebox_stepwise``: the batch is one
@@ -42,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tpufusion_torch.core.graphs import ProgramCache, StepProgram, signature, static_copy
 from tpufusion_torch.core.imaging import avg_pool
 from tpufusion_torch.ops.adam_update import adam_init, fused_adam
 from tpufusion_torch.pipeline import FusionPipeline
@@ -78,6 +86,9 @@ PRESET_INTERPOLATION = LossWeights(
 )
 
 
+EXECUTIONS = ("scan", "stepwise")
+
+
 @dataclasses.dataclass(frozen=True)
 class WhiteboxConfig:
     lr: float = 1e-4  # reference default (`attack_main2.py:879`)
@@ -86,7 +97,7 @@ class WhiteboxConfig:
     # When set, the per-image attack also returns snapshots {adv_input, rec}
     # taken with the reference's ``args.save_img`` cadence
     # (`attack_main2.py:657-661`): frame k after k*every + 1 steps, never
-    # after the final step; frames move to host numpy as they come.
+    # after the final step; host numpy when the attack returns.
     snapshot_every: Optional[int] = None
     # Split the batch into ``grad_accum`` sequential chunks per iteration:
     # only one chunk's forward/backward activations are live at a time,
@@ -94,6 +105,15 @@ class WhiteboxConfig:
     # Per-image trajectories are independent, so this changes nothing but
     # reduction order. Per-image attack only.
     grad_accum: int = 1
+    # Both executors run the same step program and walk the grad_accum
+    # chunks; this decides only where the snapshot frames go. 'scan': they
+    # stay on the device and nothing is read on the host until the loop
+    # ends; 'stepwise': each frame moves to the host as it comes
+    execution: str = "scan"
+
+    def __post_init__(self):
+        if self.execution not in EXECUTIONS:
+            raise ValueError(f"execution must be one of {EXECUTIONS}, got {self.execution!r}")
 
 
 def default_n_iters(image_size: int) -> int:
@@ -177,13 +197,15 @@ def make_whitebox_stepper(pipeline: FusionPipeline, config: WhiteboxConfig, *,
     """``(init, step)``: ``state = init(img, target)``, ``state, terms =
     step(state)``; the adversarial image is ``state["x"]``, a float32 copy of
     ``img`` that each step updates in place. Terms are batch means, or with
-    ``per_image`` (B,) vectors whose sum is what the backward takes."""
+    ``per_image`` (B,) vectors whose sum is what the backward takes.
+    ``init(..., on_device=True)`` keeps Adam's step count on the device
+    (``adam_init``), as a captured step needs."""
     loss_fn = _make_loss(pipeline, config.weights, per_image=per_image)
     ref_fn = _make_ref(pipeline)
 
-    def init(img, target_img):
+    def init(img, target_img, *, on_device: bool = False):
         x = img.detach().float().clone(memory_format=torch.contiguous_format)
-        return dict(x=x, ref=ref_fn(img, target_img), opt_state=adam_init(x))
+        return dict(x=x, ref=ref_fn(img, target_img), opt_state=adam_init(x, on_device=on_device))
 
     def step(state):
         x = state["x"].detach().requires_grad_(True)
@@ -198,52 +220,130 @@ def make_whitebox_stepper(pipeline: FusionPipeline, config: WhiteboxConfig, *,
     return init, step
 
 
-def _run(pipeline: FusionPipeline, config: WhiteboxConfig, imgs, targets, *,
-         per_image: bool):
-    """The attack loop shared by both semantics: ``(adv, trace)`` plus the
-    snapshots when ``config.snapshot_every`` is set."""
-    init, step = make_whitebox_stepper(pipeline, config, per_image=per_image)
-    every = config.snapshot_every
+def _chunks(imgs, targets, accum: int):
+    """The batch cut into ``accum`` chunks of ``ceil(b / accum)`` rows,
+    padded by wrap: per-image trajectories are independent, so the wrapped
+    rows are redundant work sliced off at the end. ``[(imgs, targets)]``."""
     b = imgs.shape[0]
-    accum = max(int(config.grad_accum or 1), 1)
-    # pad by wrap to a chunk multiple: per-image trajectories are
-    # independent, so the wrapped rows are redundant work sliced off below
     cb = -(-b // accum)
     if cb * accum != b:
         wrap = torch.arange(cb * accum, device=imgs.device) % b
         imgs = imgs[wrap]
         targets = targets if targets.shape[0] == 1 else targets[wrap]
     cuts = [slice(i * cb, (i + 1) * cb) for i in range(accum)]
-    states = [init(imgs[s], targets if targets.shape[0] == 1 else targets[s]) for s in cuts]
+    return [(imgs[s], targets if targets.shape[0] == 1 else targets[s]) for s in cuts]
+
+
+def _drive(pipeline, config, b, n_chunks, advance, xs):
+    """The iteration loop shared by the programs and the eager twin:
+    ``advance(ci)`` takes chunk ``ci`` one step, ``xs()`` is the chunks'
+    pixels. Returns the snapshots (None without ``snapshot_every``):
+    ``"stepwise"`` moves each frame to the host as it comes, ``"scan"`` keeps
+    them on the device until the loop ends."""
+    every = config.snapshot_every
     factor = pipeline.pool_factor
+    snaps = []
 
     @torch.no_grad()
-    def rec_of(x):
-        return pipeline.decode(pipeline.encoder(avg_pool(x, factor)))
+    def frame():
+        parts = xs()
+        return [torch.cat(parts)[:b], torch.cat(
+            [pipeline.decode(pipeline.encoder(avg_pool(x, factor))).float() for x in parts])[:b]]
 
-    def host(ts):
-        return np.concatenate([t.float().cpu().numpy() for t in ts])[:b]
-
-    traces, snaps = [], []
     for it in range(config.n_iters):
-        chunk_terms = [step(st)[1] for st in states]
-        traces.append(chunk_terms[0] if accum == 1 else {
-            k: torch.cat([t[k] for t in chunk_terms]) for k in chunk_terms[0]})
+        for ci in range(n_chunks):
+            advance(ci)
         # the reference's post-step check at loop index `it`: no frame at
         # k = 0 and none after the final step (`attack_main2.py:657`)
         if every and it % every == 0 and it // every > 0:
-            snaps.append(dict(adv_input=host([st["x"] for st in states]),
-                              rec=host([rec_of(st["x"]) for st in states])))
-    trace = {k: torch.stack([t[k] for t in traces], dim=-1) for k in traces[0]}
+            f = frame()
+            snaps.append([t.cpu().numpy() for t in f] if config.execution == "stepwise" else f)
+    if not every:
+        return None
+    if not snaps:  # n_iters <= every: the reference writes no frames
+        empty = np.zeros((0, b) + tuple(xs()[0].shape[1:]), np.float32)
+        return dict(adv_input=empty, rec=empty.copy())
+    host = [[t if isinstance(t, np.ndarray) else t.cpu().numpy() for t in f] for f in snaps]
+    return dict(adv_input=np.stack([f[0] for f in host]), rec=np.stack([f[1] for f in host]))
+
+
+def _result(adv, trace, snaps):
+    return (adv, trace) if snaps is None else (adv, trace, snaps)
+
+
+def run_eager(pipeline: FusionPipeline, config: WhiteboxConfig, imgs, targets, *,
+              per_image: bool):
+    """The plain twin of the white-box programs: the loop in Python over
+    ``make_whitebox_stepper``'s step, each step's tensors new, Adam's count
+    on the host. ``(adv, trace)`` plus the snapshots when
+    ``config.snapshot_every`` is set."""
+    init, step = make_whitebox_stepper(pipeline, config, per_image=per_image)
+    b = imgs.shape[0]
+    states = [init(i, t) for i, t in _chunks(imgs, targets, max(int(config.grad_accum or 1), 1))]
+    traces = [[] for _ in states]
+
+    def advance(ci):
+        states[ci], terms = step(states[ci])
+        traces[ci].append(terms)
+
+    snaps = _drive(pipeline, config, b, len(states), advance, lambda: [s["x"] for s in states])
+    trace = {k: torch.cat([torch.stack([t[k] for t in tr], dim=-1) for tr in traces])
+             if per_image else torch.stack([t[k] for t in traces[0]])
+             for k in traces[0][0]}
     if per_image:
         trace = {k: v[:b] for k, v in trace.items()}
-    adv = torch.cat([st["x"] for st in states])[:b]
-    if not every:
-        return adv, trace
-    if not snaps:  # n_iters <= every: the reference writes no frames
-        empty = np.zeros((0, b) + tuple(imgs.shape[1:]), np.float32)
-        return adv, trace, dict(adv_input=empty, rec=empty.copy())
-    return adv, trace, {k: np.stack([s[k] for s in snaps]) for k in snaps[0]}
+    return _result(torch.cat([s["x"] for s in states])[:b], trace, snaps)
+
+
+def _program_runner(pipeline: FusionPipeline, config: WhiteboxConfig, *, per_image: bool):
+    """``run(imgs, targets)`` over one ``StepProgram`` per chunk, cached by
+    the inputs' signature; ``run.programs`` is the cache."""
+    init, step = make_whitebox_stepper(pipeline, config, per_image=per_image)
+    programs = ProgramCache(fixed=(pipeline,))
+    n = config.n_iters
+
+    def body(state, inputs):
+        st = dict(x=state["x"], ref=inputs["ref"], opt_state=state["opt"])
+        _, terms = step(st)
+        for k, v in terms.items():
+            state["trace"][k].index_copy_(-1, state["idx"].view(1), v.unsqueeze(-1))
+        state["idx"].add_(1)
+
+    def start(img, target):
+        st = init(img, target, on_device=True)
+        lead = (img.shape[0],) if per_image else ()
+        # the terms' dtype: they are float32 (``.float()``), as x is
+        trace = {k: torch.zeros(lead + (n,), dtype=st["x"].dtype, device=img.device)
+                 for k in TERMS + ("total",)}
+        return (dict(x=st["x"], opt=st["opt_state"], trace=trace,
+                     idx=torch.zeros((), dtype=torch.int64, device=img.device)),
+                dict(ref=st["ref"]))
+
+    def build(starts):
+        progs = []
+        for state, inputs in starts:
+            progs.append(StepProgram(body, static_copy(state), static_copy(inputs), limit=n,
+                                     pool_of=progs[0] if progs else None))
+        return progs
+
+    def run(imgs, targets):
+        b = imgs.shape[0]
+        starts = [start(i, t) for i, t in _chunks(imgs, targets,
+                                                  max(int(config.grad_accum or 1), 1))]
+        progs = programs.get(signature(imgs, targets), lambda: build(starts))
+        for prog, (state, inputs) in zip(progs, starts):
+            prog.load(state, inputs)
+        snaps = _drive(pipeline, config, b, len(progs), lambda ci: progs[ci].run(1),
+                       lambda: [p.state["x"] for p in progs])
+        trace = {k: torch.cat([p.state["trace"][k] for p in progs]) if per_image
+                 else progs[0].state["trace"][k].clone() for k in progs[0].state["trace"]}
+        if per_image:
+            trace = {k: v[:b] for k, v in trace.items()}
+        adv = torch.cat([p.state["x"] for p in progs])[:b]
+        return _result(adv, trace, snaps)
+
+    run.programs = programs
+    return run
 
 
 def _no_grad_accum(config: WhiteboxConfig, what: str) -> None:
@@ -261,19 +361,15 @@ def make_whitebox_attack(pipeline: FusionPipeline, config: WhiteboxConfig):
     batch. ``trace`` maps each term and ``total`` to an (n_iters,) tensor.
     Use ``make_per_image_whitebox`` for per-image trajectories."""
     _no_grad_accum(config, "make_whitebox_attack")
-
-    def attack(img, target_img):
-        return _run(pipeline, config, img, target_img, per_image=False)
-
-    return attack
+    return _program_runner(pipeline, config, per_image=False)
 
 
 def run_whitebox_stepwise(pipeline: FusionPipeline, img, target_img,
                           config: WhiteboxConfig):
     """``make_whitebox_attack`` without snapshots, ``(adv, trace)``; kept
     only so the JAX package's entry-point names carry over."""
-    return make_whitebox_attack(pipeline, dataclasses.replace(config, snapshot_every=None))(
-        img, target_img)
+    return make_whitebox_attack(pipeline, dataclasses.replace(
+        config, snapshot_every=None, execution="stepwise"))(img, target_img)
 
 
 def make_per_image_whitebox(pipeline: FusionPipeline, config: WhiteboxConfig):
@@ -282,12 +378,9 @@ def make_per_image_whitebox(pipeline: FusionPipeline, config: WhiteboxConfig):
     (white_box_target) or per-image (white_box_patch),
     `attack_main2.py:472-482`. Returns ``(adv, trace)``, trace (B, n_iters)
     per term, plus the snapshots {adv_input, rec}, each (K, B, S, S, 3)
-    host numpy, when ``config.snapshot_every`` is set."""
-
-    def attack(imgs, targets):
-        return _run(pipeline, config, imgs, targets, per_image=True)
-
-    return attack
+    host numpy, when ``config.snapshot_every`` is set. ``attack.programs``
+    holds its step programs (``release()`` frees them)."""
+    return _program_runner(pipeline, config, per_image=True)
 
 
 def run_whitebox(pipeline: FusionPipeline, inputs, target_img, config: WhiteboxConfig,

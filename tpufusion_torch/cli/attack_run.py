@@ -62,16 +62,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="alias for --whitebox_execution stepwise")
     p.add_argument("--whitebox_execution", default="auto",
                    choices=["auto", "scan", "stepwise"],
-                   help="the JAX CLI's white-box executor name: the port "
-                        "runs one Python loop for both, so the value is "
-                        "validated and recorded (and 'scan' refuses "
-                        "--whitebox_grad_accum > 1, as in JAX)")
+                   help="white-box executor: both replay the captured "
+                        "step; 'stepwise' moves snapshot frames to the host "
+                        "as they come, 'scan' keeps them on the device; "
+                        "'auto' is stepwise when snapshots are on")
     p.add_argument("--whitebox_grad_accum", type=int, default=1,
                    help="sequential microbatch chunks per white-box "
                         "iteration: >1 bounds activation memory to "
                         "batch/accum per step so effective batches beyond "
                         "the single-chip ceiling run without OOM "
-                        "(stepwise executor)")
+                        "(either executor)")
     p.add_argument("--whitebox_preset", default="attack_main",
                    choices=["attack_main", "interpolation"],
                    help="white-box loss preset: attack_main2.py:649 or "

@@ -28,13 +28,58 @@ def avg_pool(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.reshape(n, h // factor, factor, w // factor, factor, c).mean(dim=(2, 4))
 
 
+def _interpolate(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    return F.interpolate(x, size=(height, width), mode="bilinear", align_corners=False,
+                         antialias=True)
+
+
+_RESIZE_WEIGHTS: dict = {}
+
+
+def resize_weights(size_in: int, size_out: int, device) -> torch.Tensor:
+    """(size_out, size_in) float32: row i holds the weights that the
+    antialiased resize gives output i along one axis. Read off by resizing
+    the identity on ``device`` (channel k holds row k, two columns wide,
+    which the resize keeps as they are), so each entry is one weight times
+    1: the weights that device's kernel uses, exactly. A width of one
+    column would not do: PyTorch's CPU kernel resizes an (N, 1, H, 1)
+    tensor wrongly. Cached per sizes and device (a graph's replays read
+    the copy its warm-up made)."""
+    key = (size_in, size_out, torch.device(device))
+    w = _RESIZE_WEIGHTS.get(key)
+    if w is None:
+        eye = torch.eye(size_in, device=device)[None, :, :, None].expand(-1, -1, -1, 2)
+        w = _interpolate(eye.contiguous(), size_out, 2)[0, :, :, 0].t().contiguous()
+        _RESIZE_WEIGHTS[key] = w
+    return w
+
+
+class _Resize(torch.autograd.Function):
+    """The antialiased resize with a deterministic backward. PyTorch's own
+    (``upsample_bilinear2d_aa_backward``) accumulates with atomics on CUDA,
+    so two runs of one attack part after a sign step flips; this one is the
+    transposed map as two matrix products with ``resize_weights``."""
+
+    @staticmethod
+    def forward(ctx, x, height, width):
+        ctx.in_size = x.shape[2:]
+        return _interpolate(x, height, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h, w), (ho, wo) = ctx.in_size, g.shape[2:]
+        wh = resize_weights(h, ho, g.device)
+        ww = resize_weights(w, wo, g.device)
+        return torch.matmul(wh.t(), torch.matmul(g, ww)), None, None
+
+
 def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Bilinear resize of NHWC images, as ``jax.image.resize(..., "bilinear")``
     computes it: antialiased when it shrinks (the triangle kernel widened by
     the scale), plain bilinear with half-pixel centres when it grows.
-    Computed in float32, returned in ``x``'s dtype."""
-    y = F.interpolate(x.float().permute(0, 3, 1, 2), size=(height, width), mode="bilinear",
-                      align_corners=False, antialias=True)
+    Computed in float32, returned in ``x``'s dtype. Its gradient is the
+    same on every run (``_Resize``)."""
+    y = _Resize.apply(x.float().permute(0, 3, 1, 2), height, width)
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 

@@ -6,8 +6,12 @@
 //   mu' = B1*mu + (1-B1)*g        nu' = B2*nu + ((1-B2)*g)*g
 //   x'  = x - lr * ((mu'/bc1) / (sqrt(nu'/bc2) + EPS))
 //
-// lr, bc1 = 1 - B1^t and bc2 = 1 - B2^t are kernel arguments (the wrapper
-// computes them once per step in float32). Every operation is spelled with
+// lr is a kernel argument; bc1 = 1 - B1^t and bc2 = 1 - B2^t are read from
+// device memory, row min(*step, rows - 1) of a float32 (rows, 2) table that
+// the wrapper fills once on the host (row r holds step t = r + 1; the last
+// row is (1, 1), which every later step rounds to). The step counter is a
+// device int, so a launch captured in a CUDA graph reads the next row on
+// every replay. Every operation is spelled with
 // a round-to-nearest intrinsic, so nvcc cannot contract a*b + c into an FMA
 // and the result is bit for bit the plain PyTorch version's
 // (ops/adam_update.py::adam_update_plain), which rounds after every op.
@@ -39,10 +43,18 @@ __device__ __forceinline__ void adam_one(float& x, float g, float& mu, float& nu
   x = __fsub_rn(x, __fmul_rn(lr, step));
 }
 
-// streams: in = (x, g, mu, nu), out = (x, mu, nu), in place
+// streams: in = (x, g, mu, nu), out = (x, mu, nu), in place; the bias
+// corrections through the read-only path (the same two words for every
+// thread: L1 hits after the first)
 struct AdamOp {
-  float lr, bc1, bc2;
+  float lr;
+  const float* table;
+  const int* step;
+  int rows;
   __device__ __forceinline__ void operator()(const float (&in)[4], float (&out)[3]) const {
+    const int s = __ldg(step);
+    const int r = s < rows - 1 ? s : rows - 1;
+    const float bc1 = __ldg(table + 2 * r), bc2 = __ldg(table + 2 * r + 1);
     float x = in[0], mu = in[2], nu = in[3];
     adam_one(x, in[1], mu, nu, lr, bc1, bc2);
     out[0] = x;
@@ -54,11 +66,13 @@ struct AdamOp {
 }  // namespace
 
 extern "C" int tf_adam_update(void* x, const void* g, void* mu, void* nu, long long n,
-                              float lr, float bc1, float bc2, void* stream) {
+                              float lr, const void* table, int rows, const void* step,
+                              void* stream) {
   float* xf = static_cast<float*>(x);
   float* mf = static_cast<float*>(mu);
   float* vf = static_cast<float*>(nu);
   tf_stream::Streams<float, 4, 3> st{{xf, static_cast<const float*>(g), mf, vf}, {xf, mf, vf}};
   // the waves grid at every size (pixel_stream.cuh)
-  return tf_stream::launch(st, n, AdamOp{lr, bc1, bc2}, 0, reinterpret_cast<cudaStream_t>(stream));
+  const AdamOp op{lr, static_cast<const float*>(table), static_cast<const int*>(step), rows};
+  return tf_stream::launch(st, n, op, 0, reinterpret_cast<cudaStream_t>(stream));
 }

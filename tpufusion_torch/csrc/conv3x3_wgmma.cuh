@@ -654,13 +654,24 @@ int launch_wgmma(const void* x, const void* wpk, void* y, const float* style, co
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
-  static size_t occ_smem = 0;  // blocks per SM at the last shared memory size asked
-  static int per_sm = 0;
-  if (smem != occ_smem) {
+  // blocks per SM at each shared memory size asked (a class sees one size a
+  // chunk count): after an attack step's eager warm-up, a launch captured
+  // in a CUDA graph makes no runtime call but the launch's own
+  static size_t occ_smem[8] = {};
+  static int occ_blocks[8] = {};
+  int per_sm = 0;
+  for (int i = 0; i < 8 && occ_smem[i] != 0 && per_sm == 0; ++i)
+    if (occ_smem[i] == smem) per_sm = occ_blocks[i];
+  if (per_sm == 0) {
     const cudaError_t err =
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, C::THREADS, smem);
     if (err != cudaSuccess) return (int)err;
-    occ_smem = smem;
+    for (int i = 0; i < 8; ++i)
+      if (occ_smem[i] == 0) {
+        occ_smem[i] = smem;
+        occ_blocks[i] = per_sm;
+        break;
+      }
   }
   const int n_tiles = Cout / C::BN;
   const int m_tiles = N * ((H + C::TH - 1) / C::TH) * ((W + C::TW - 1) / C::TW);

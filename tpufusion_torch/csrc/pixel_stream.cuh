@@ -24,7 +24,8 @@
 //   next kUnroll. pgd_update up to 2 x 1024^2 x 3 (10% faster than waves at
 //   4 x 512^2 x 3).
 //
-// A launch allocates nothing and runs on the caller's stream, so it can be
+// A launch allocates nothing and runs on the caller's stream, and after its
+// first call asks the runtime nothing but the current device, so it can be
 // captured in a CUDA graph.
 #pragma once
 
@@ -134,10 +135,16 @@ int launch_on(long long grid, long long want, cudaStream_t st, Args... args) {
                                                                           kThreads, 0);
       if (e != cudaSuccess) return (int)e;
     }
-    int dev = 0, sms = 0;
+    static int sm_count[64] = {};  // SMs of each device, asked once
+    int dev = 0;
     cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
+    if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+    if (sm_count[dev] == 0) {
+      e = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const int sms = sm_count[dev];
     grid = want < (long long)sms * per_sm ? want : (long long)sms * per_sm;
   }
   kernel<<<dim3((unsigned)(grid < 1 ? 1 : grid)), kThreads, 0, st>>>(args...);

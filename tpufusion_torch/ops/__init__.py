@@ -29,6 +29,18 @@ def reset_launch_counts() -> None:
     c3.launches_fwd = c3.launches_dgrad = c3.launches_wgrad = 0
 
 
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta`` (a ``launch_counts``-keyed dict) to the counts: what a
+    CUDA graph's replay launched (``core/graphs.py``)."""
+    c3 = conv3x3.conv3x3
+    styled_conv.styled_conv.launches += delta.get("styled_conv", 0)
+    c3.launches_fwd += delta.get("conv3x3_fwd", 0)
+    c3.launches_dgrad += delta.get("conv3x3_dgrad", 0)
+    c3.launches_wgrad += delta.get("conv3x3_wgrad", 0)
+    pgd_update.pgd_update.launches += delta.get("pgd_update", 0)
+    adam_update.fused_adam.launches += delta.get("fused_adam", 0)
+
+
 def launch_counts() -> dict:
     """Launch counts of every kernel wrapper since the last reset."""
     c3 = conv3x3.conv3x3
@@ -43,7 +55,7 @@ def launch_counts() -> dict:
 
 
 __all__ = [
-    "adam_update", "blur", "conv3x3", "downsample_2x", "launch_counts", "make_blur_kernel",
+    "adam_update", "add_launch_counts", "blur", "conv3x3", "downsample_2x", "launch_counts", "make_blur_kernel",
     "masked_composite", "modulated_conv2d", "pgd_update", "reset_launch_counts",
     "styled_conv", "upfirdn2d", "upsample_2x",
 ]

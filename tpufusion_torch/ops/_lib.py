@@ -31,7 +31,7 @@ SIGNATURES = {
     "conv3x3": {"tf_conv3x3_fwd": [_P] * 3 + [_I] * 6 + [_P],
                 "tf_conv3x3_wgrad": [_P] * 4 + [_I] * 6 + [_P]},
     "pgd_update": {"tf_pgd_update": [_P] * 4 + [ctypes.c_longlong, _I] + [_F] * 4 + [_P]},
-    "adam_update": {"tf_adam_update": [_P] * 4 + [ctypes.c_longlong] + [_F] * 3 + [_P]},
+    "adam_update": {"tf_adam_update": [_P] * 4 + [ctypes.c_longlong, _F, _P, _I, _P, _P]},
 }
 SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

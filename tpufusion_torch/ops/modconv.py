@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from tpufusion_torch.ops.conv3x3 import conv3x3, supported as conv3x3_supported
-from tpufusion_torch.ops.upfirdn2d import blur, make_blur_kernel
+from tpufusion_torch.ops.upfirdn2d import blur, blur_kernel
 
 
 def _nchw(x):
@@ -62,11 +62,11 @@ def modulated_conv2d(
         # transposed conv == correlation of the 2x zero-dilated input with the
         # flipped kernel under full (k-1) padding; (Cin, Cout, kh, kw) layout
         y = _nhwc(F.conv_transpose2d(_nchw(xs), w.permute(2, 3, 0, 1), stride=2))
-        k = make_blur_kernel(blur_taps, gain=4.0, device=x.device)
+        k = blur_kernel(blur_taps, 4.0, x.device)
         p = (len(blur_taps) - 2) - (kh - 1)
         y = blur(y, k, pad=((p + 1) // 2 + 1, p // 2 + 1))
     elif down:
-        k = make_blur_kernel(blur_taps, gain=1.0, device=x.device)
+        k = blur_kernel(blur_taps, 1.0, x.device)
         p = (len(blur_taps) - 2) + (kh - 1)
         xs = blur(xs, k, pad=((p + 1) // 2, p // 2))
         y = _nhwc(F.conv2d(_nchw(xs), w.permute(3, 2, 0, 1), stride=2))

@@ -29,6 +29,20 @@ def make_blur_kernel(taps=(1, 3, 3, 1), gain: float = 1.0, device=None) -> torch
     return torch.tensor(_kernel_2d(tuple(taps), float(gain)), device=device)
 
 
+_DEVICE_KERNELS: dict = {}
+
+
+def blur_kernel(taps, gain: float, device) -> torch.Tensor:
+    """``make_blur_kernel`` on ``device``, built once per (taps, gain,
+    device) and shared: callers only read it. A forward captured in a CUDA
+    graph (``core/graphs.py``) then copies nothing from the host."""
+    key = (tuple(taps), float(gain), torch.device(device))
+    k = _DEVICE_KERNELS.get(key)
+    if k is None:
+        k = _DEVICE_KERNELS[key] = make_blur_kernel(taps, gain, device)
+    return k
+
+
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1, down: int = 1,
               pad: tuple = (0, 0)) -> torch.Tensor:
     """NHWC upsample-by-zero-stuffing, FIR filter (true convolution),
@@ -55,13 +69,13 @@ def blur(x: torch.Tensor, kernel: torch.Tensor, pad: tuple) -> torch.Tensor:
 
 def upsample_2x(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     """2x zero-stuffed upsample + smoothing (rosinality ``Upsample``)."""
-    k = make_blur_kernel(taps, gain=4.0, device=x.device)
+    k = blur_kernel(taps, 4.0, x.device)
     p = k.shape[0] - 2
     return upfirdn2d(x, k, up=2, down=1, pad=((p + 1) // 2 + 1, p // 2))
 
 
 def downsample_2x(x: torch.Tensor, taps=(1, 3, 3, 1)) -> torch.Tensor:
     """Anti-aliased 2x downsample (rosinality ``Downsample``)."""
-    k = make_blur_kernel(taps, gain=1.0, device=x.device)
+    k = blur_kernel(taps, 1.0, x.device)
     p = k.shape[0] - 2
     return upfirdn2d(x, k, up=1, down=2, pad=((p + 1) // 2, p // 2))

@@ -27,6 +27,8 @@ at the unpadded shape and sliced, or split per image or group
 
 from __future__ import annotations
 
+import dataclasses
+
 import os
 from typing import Optional
 
@@ -308,19 +310,19 @@ def prepare_whitebox_batch(inputs, target_img, which_adv, mesh: DeviceMesh):
 
 def run_whitebox_sharded(pipeline, inputs, target_img, config, which_adv, mesh: DeviceMesh):
     """Runner-level data-parallel white-box attack: the semantics of
-    ``attacks.whitebox.run_whitebox`` (`attack_main2.py:465-498`) through
-    ``make_sharded_whitebox_step``. Returns ``(adv_inputs, loss_trace)``,
-    the trace (n_selected, iters) of per-image totals, pad rows sliced off
-    (the ``per_image_iter`` log kind)."""
+    ``attacks.whitebox.run_whitebox`` (`attack_main2.py:465-498`), each rank
+    running the per-image attack (``make_per_image_whitebox``: on the card
+    the captured step, replayed) on its rows, the rows gathered at the end.
+    Returns ``(adv_inputs, loss_trace)``, the trace (n_selected, iters) of
+    per-image totals, pad rows sliced off (the ``per_image_iter`` log
+    kind)."""
+    from tpufusion_torch.attacks.whitebox import make_per_image_whitebox
+
     idx, sub_p, targets_p, n_real = prepare_whitebox_batch(inputs, target_img, which_adv, mesh)
-    step, init, place_batch = make_sharded_whitebox_step(pipeline, config, mesh)
-    state = init(*place_batch(sub_p, targets_p))
-    losses = []
-    for _ in range(config.n_iters):
-        state, per = step(state)
-        losses.append(per)
-    adv_sel = gather_rows(mesh, state["x"])[:n_real]
-    trace = torch.stack(losses, dim=1)[:n_real]
+    attack = make_per_image_whitebox(pipeline, dataclasses.replace(config, snapshot_every=None))
+    adv_local, trace = attack(local_rows(mesh, sub_p), local_rows(mesh, targets_p))
+    adv_sel = gather_rows(mesh, adv_local)[:n_real]
+    trace = gather_rows(mesh, trace["total"])[:n_real]
     adv = inputs.clone()
     adv[idx] = adv_sel.to(adv.dtype)
     return adv, trace

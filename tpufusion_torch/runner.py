@@ -190,12 +190,12 @@ def write_loss_log(run_dir: Optional[str], attack: str, trace,
 
 
 def resolve_whitebox_execution(execution: str, snapshots_active: bool) -> str:
-    """Resolve an ``AttackRunConfig.whitebox_execution`` value to the name
-    of the JAX package's executor: ``"auto"`` picks stepwise when snapshots
+    """Resolve an ``AttackRunConfig.whitebox_execution`` value to a
+    ``WhiteboxConfig.execution``: ``"auto"`` picks stepwise when snapshots
     are active and scan otherwise; an explicit ``"scan"``/``"stepwise"`` is
-    honoured. The port has one executor, a Python loop, behind both names:
-    the value is validated and recorded, and it decides nothing else but the
-    ``whitebox_grad_accum`` rule in ``dispatch_attack``."""
+    honoured. Both replay the captured white-box step; ``"stepwise"`` moves
+    each snapshot frame to the host as it comes, ``"scan"`` reads nothing on
+    the host until the loop ends (``attacks/whitebox.py``)."""
     if execution == "auto":
         return "stepwise" if snapshots_active else "scan"
     if execution not in ("scan", "stepwise"):
@@ -311,12 +311,10 @@ def dispatch_attack(
         snap_every = (cfg.snapshot_every if run_dir and cfg.snapshot_every and not use_mesh
                       else None)
         accum = max(int(cfg.whitebox_grad_accum or 1), 1)
+        # both executors walk the grad_accum chunks; execution decides only
+        # where the snapshot frames go
         execution = resolve_whitebox_execution(
             cfg.whitebox_execution, bool(snap_every))
-        if accum > 1 and execution != "stepwise" and cfg.whitebox_execution != "auto":
-            raise ValueError(
-                "whitebox_grad_accum > 1 requires "
-                "whitebox_execution='stepwise' (or 'auto')")
         wcfg = WhiteboxConfig(
             lr=cfg.lr, n_iters=cfg.iters_for(size),
             weights=(PRESET_INTERPOLATION
@@ -324,6 +322,7 @@ def dispatch_attack(
                      else PRESET_ATTACK_MAIN),
             snapshot_every=snap_every,
             grad_accum=accum,
+            execution=execution,
         )
         if attack == "white_box_patch":
             # per-image paste target (`attack_main2.py:339-351`)
@@ -387,7 +386,7 @@ def dispatch_attack(
             adv, tr = run_pgd_sharded(loss, pcfg, inputs, generator, (latent_org,), ("batch",),
                                       mesh)
         else:
-            adv, tr = make_pgd(loss, pcfg)(inputs, generator, latent_org)
+            adv, tr = make_pgd(loss, pcfg, fixed=(pipeline,))(inputs, generator, latent_org)
         write_loss_log(run_dir, attack, tr)
         return [adv]
 
