@@ -949,11 +949,15 @@ def check_weight_grad_chain(torch):
     its parameters requiring grad."""
     from tpufusion_torch.models.stylegan2 import Generator
     from tpufusion_torch.ops import conv3x3 as c3
+    from tpufusion_torch.ops import launch_counts
     from tpufusion_torch.ops import styled_conv as sc
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(30)
-    count = c3.conv3x3
+
+    def wgrad_launches():
+        return launch_counts()["conv3x3_wgrad"]
+
     results = []
 
     def rn(*shape):
@@ -968,10 +972,10 @@ def check_weight_grad_chain(torch):
         grads = []
         for fn in (sc.styled_conv, sc.styled_conv_plain):
             w = weight.clone().requires_grad_(True)
-            before = count.launches_wgrad
+            before = wgrad_launches()
             (dw,) = torch.autograd.grad(fn(x, w, *rest), w, g)
             torch.cuda.synchronize()
-            grads.append((dw, count.launches_wgrad - before))
+            grads.append((dw, wgrad_launches() - before))
         (got, launched), (want, launched_plain) = grads
         err, _ = _err(torch, got, want)
         rel = err / want.abs().max().item()
@@ -996,11 +1000,11 @@ def check_weight_grad_chain(torch):
                       generator=torch.Generator(device=dev).manual_seed(31))
     z = torch.randn((1, model.style_dim), generator=gen, device=dev).to(
         model.policy.compute_dtype)
-    before = count.launches_wgrad
+    before = wgrad_launches()
     image = model([z]).image
     image.backward(torch.randn(image.shape, generator=gen, device=dev))
     torch.cuda.synchronize()
-    launched = count.launches_wgrad - before
+    launched = wgrad_launches() - before
     params = list(model.named_parameters())
     bad = [name for name, p in params if p.grad is None or not torch.isfinite(p.grad).all()]
     log(f"  full-width Generator (1024^2, batch 1) forward + backward: weight-grad launches "

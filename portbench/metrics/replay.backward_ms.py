@@ -1,0 +1,10 @@
+"""``replay.backward_ms`` (ms; models in a replay; moves ``attack_step_ms``):
+the device time of the program's ``backward`` span (the whole backward to
+the pixels) in each traced step program's last replay, the mean over the
+programs (``program_trace.py``)."""
+
+from portbench import program_trace
+
+
+def read(ctx):
+    return program_trace.replay_mean_ms("backward")

@@ -1,0 +1,10 @@
+"""``replay.synthesis_ms`` (ms; models in a replay; moves ``attack_step_ms``):
+the device time of the program's ``synthesis`` span (the StyleGAN2
+synthesis's forward) in each traced step program's last replay, the mean
+over the programs (``program_trace.py``)."""
+
+from portbench import program_trace
+
+
+def read(ctx):
+    return program_trace.replay_mean_ms("synthesis")

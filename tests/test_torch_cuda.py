@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from tpufusion_torch.ops import adam_update as au
+from tpufusion_torch.ops import launch_counts
 from tpufusion_torch.ops import conv3x3 as c3
 from tpufusion_torch.ops import pgd_update as pu
 from tpufusion_torch.ops import styled_conv as sc
@@ -97,9 +98,9 @@ def test_styled_conv_bf16_autograd(cuda):
     ``styled_conv_reference`` (the backward recomputes it)."""
     x, w, s, noise, ns, b = _styled_args(cuda, torch.bfloat16, 2, 24, 20, 64, 64)
     ins = [t.clone().requires_grad_(True) for t in (x, w, s, b)]
-    before = sc.styled_conv.launches
+    before = launch_counts()["styled_conv"]
     y = sc.styled_conv(ins[0], ins[1], ins[2], noise, ns, ins[3])
-    assert sc.styled_conv.launches == before + 1
+    assert launch_counts()["styled_conv"] == before + 1
     g = torch.randn(y.shape, generator=cuda, device="cuda").to(y.dtype)
     grads = torch.autograd.grad(y, ins, g)
     refs = [t.clone().requires_grad_(True) for t in (x, w, s, b)]
@@ -186,10 +187,11 @@ def test_conv_kernels_take_offset_views(cuda, dtype):
 def test_conv3x3_autograd_counts_launches(cuda):
     x = torch.randn(1, 16, 16, 32, device="cuda", requires_grad=True)
     w = torch.randn(3, 3, 32, 32, device="cuda", requires_grad=True)
-    before = (c3.conv3x3.launches_fwd, c3.conv3x3.launches_dgrad, c3.conv3x3.launches_wgrad)
+    keys = ("conv3x3_fwd", "conv3x3_dgrad", "conv3x3_wgrad")
+    before = launch_counts()
     dx, dw = torch.autograd.grad(c3.conv3x3(x, w).square().sum(), (x, w))
-    after = (c3.conv3x3.launches_fwd, c3.conv3x3.launches_dgrad, c3.conv3x3.launches_wgrad)
-    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+    after = launch_counts()
+    assert [after[k] - before[k] for k in keys] == [1, 1, 1]
     xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
     dxr, dwr = torch.autograd.grad(c3.conv3x3_plain(xr, wr).square().sum(), (xr, wr))
     _close(dx, dxr, torch.float32)
@@ -241,9 +243,9 @@ def test_fused_adam_kernel(cuda, shape, count):
 def test_fused_adam_counts_launches(cuda):
     x = torch.randn(1, 8, 8, 3, device="cuda")
     st = au.adam_init(x)
-    before = au.fused_adam.launches
+    before = launch_counts()["fused_adam"]
     x2, st = au.fused_adam(x, torch.randn_like(x), st, 1e-2)
-    assert x2 is x and st["count"] == 1 and au.fused_adam.launches == before + 1
+    assert x2 is x and st["count"] == 1 and launch_counts()["fused_adam"] == before + 1
     with pytest.raises(TypeError):
         au.fused_adam(x.bfloat16(), x.bfloat16(), au.adam_init(x.bfloat16()), 1e-2)
 
@@ -344,6 +346,34 @@ def test_whitebox_graph_equals_the_eager_loop(small_pipeline):
         cfg = wb.WhiteboxConfig(lr=1e-2, n_iters=5, **kw)
         got = wb.make_per_image_whitebox(p, cfg)(x, t)
         assert _tree_equal(got, wb.run_eager(p, cfg, x, t, per_image=True)), kw
+
+
+def test_whitebox_traced_capture_replays_bit_equal(small_pipeline):
+    """A white-box program captured while a profiler session records
+    carries its device spans as event nodes: it gives the bits of one
+    captured without, and its last replay's spans are positive, the four
+    modules within ``step``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpufusion_torch.attacks import whitebox as wb
+    from tpufusion_torch.core import trace
+
+    p = small_pipeline
+    g = torch.Generator(device="cuda").manual_seed(5)
+    s = p.image_size
+    x = torch.rand((3, s, s, 3), generator=g, device="cuda") * 2 - 1
+    t = torch.rand((1, s, s, 3), generator=g, device="cuda") * 2 - 1
+    cfg = wb.WhiteboxConfig(lr=1e-2, n_iters=4)
+    first = len(trace.PROGRAMS)
+    plain = wb.make_per_image_whitebox(p, cfg)(x, t)
+    assert len(trace.PROGRAMS) == first
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = wb.make_per_image_whitebox(p, cfg)(x, t)
+    assert _tree_equal(plain, traced)
+    (ms,) = trace.replay_ms(first)
+    assert sorted(ms) == ["backward", "encoder", "step", "synthesis", "vgg16"], ms
+    assert all(v > 0 for v in ms.values()), ms
+    assert sum(v for k, v in ms.items() if k != "step") <= ms["step"], ms
 
 
 def test_cw_graph_equals_the_eager_loop(deterministic):

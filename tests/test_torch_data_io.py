@@ -45,7 +45,7 @@ from tpufusion_torch.io import (
 )
 from tpufusion_torch.io.images import save_comparison_grid
 from tpufusion_torch.io.xlsx import read_xlsx, write_xlsx
-from tpufusion_torch.utils import EasyDict, Logger, StepTimer, trace_profile
+from tpufusion_torch.utils import EasyDict, Logger, trace_profile
 from tpufusion_torch.utils.logging import aggregate_loss_dict
 
 rng = np.random.RandomState(0)
@@ -318,20 +318,21 @@ class TestUtils:
         assert "hello-tee" in content and "to-stderr" in content
         assert not isinstance(sys.stdout, Logger)
 
-    def test_step_timer(self):
-        t = StepTimer()
-        for _ in range(3):
-            t.start()
-            t.stop(torch.ones(2) * 2)  # a CPU tensor: nothing to wait for
-        t.start()
-        t.stop({"x": [torch.zeros(1)]})
-        assert len(t.times) == 4 and t.steps_per_sec() > 0
-
     def test_trace_profile_writes_a_chrome_trace(self, tmp_path):
+        from tpufusion_torch.core import trace
+
+        before = len(trace.PROGRAMS)
         with trace_profile(str(tmp_path / "prof")):
             torch.ones(64, 64) @ torch.ones(64, 64)
+            # a program captured while it records, never replayed
+            trace.PROGRAMS.append(trace.ProgramRecord())
         with open(tmp_path / "prof" / "trace.json") as f:
             assert "traceEvents" in json.load(f)
+        # no step program replayed on the CPU: no replay times
+        with open(tmp_path / "prof" / "replay_ms.json") as f:
+            assert json.load(f) == []
+        # what the profile wrote out leaves the tracer's record
+        assert len(trace.PROGRAMS) == before
 
     def test_aggregate_loss_dict(self):
         assert aggregate_loss_dict([{"a": 1.0, "b": 2.0}, {"a": 3.0}]) == {"a": 2.0, "b": 2.0}

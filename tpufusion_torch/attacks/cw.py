@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from tpufusion_torch.core.graphs import (
     ProgramCache, StepProgram, signature, split_args, static_copy)
+from tpufusion_torch.core.trace import span
 from tpufusion_torch.ops.adam_update import adam_init, fused_adam
 
 
@@ -130,10 +131,12 @@ def make_cw(logits_fn: Callable, config: CWConfig):
                 dict(images=images, labels=labels, args=split_args(logits_args)[0]))
 
     def attack(images, labels, *logits_args):
-        images = images.float()
-        key = signature(images, labels, *logits_args)
-        prog = programs.get(key, lambda: build(images, labels, logits_args), keep=logits_args)
-        prog.load(*buffers(images, labels, logits_args))
+        with span("attack.prepare"):
+            images = images.float()
+            key = signature(images, labels, *logits_args)
+            prog = programs.get(key, lambda: build(images, labels, logits_args),
+                                keep=logits_args)
+            prog.load(*buffers(images, labels, logits_args))
         prog.run(cfg.steps)
         return prog.state["best_adv"].clone(), prog.state["best_l2"].clone()
 

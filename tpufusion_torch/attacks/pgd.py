@@ -27,6 +27,7 @@ import torch
 
 from tpufusion_torch.core.graphs import (
     ProgramCache, StepProgram, signature, split_args, static_copy)
+from tpufusion_torch.core.trace import span
 from tpufusion_torch.ops.pgd_update import pgd_update
 
 
@@ -113,10 +114,11 @@ def make_pgd(loss_fn: Callable, config: PGDConfig, *, external_start: bool = Fal
     programs = ProgramCache(fixed)
 
     def run(images, start, loss_args):
-        key = signature(images, start, *loss_args)
-        prog = programs.get(key, lambda: pgd_program(loss_fn, cfg, images, start, loss_args),
-                            keep=loss_args)
-        prog.load(*_pgd_buffers(cfg, images, start, loss_args))
+        with span("attack.prepare"):
+            key = signature(images, start, *loss_args)
+            prog = programs.get(key, lambda: pgd_program(loss_fn, cfg, images, start, loss_args),
+                                keep=loss_args)
+            prog.load(*_pgd_buffers(cfg, images, start, loss_args))
         prog.run(cfg.steps)
         return prog.state["adv"].clone(), prog.state["trace"].clone()
 

@@ -28,7 +28,11 @@ pool). On the card a program's first step runs eagerly and every later
 step replays the step captured once as a CUDA graph. ``"scan"`` reads
 nothing on the host until the loop ends (snapshot frames stay on the
 device); ``"stepwise"`` moves each snapshot frame to the host as it comes.
-``run_eager``, the Python loop, is the programs' plain twin.
+``run_eager``, the Python loop, is the programs' plain twin. While a
+profiler session records (``core/trace.py``), ``attack.prepare`` spans a
+call up to its programs loaded, and a captured step carries the device
+spans ``step`` (the body), ``encoder``, ``synthesis``, ``vgg16`` (both
+passes) and ``backward``.
 
 Two semantics, as in the JAX package:
 - ``make_whitebox_attack`` / ``run_whitebox_stepwise``: the batch is one
@@ -51,6 +55,7 @@ import torch
 
 from tpufusion_torch.core.graphs import ProgramCache, StepProgram, signature, static_copy
 from tpufusion_torch.core.imaging import avg_pool
+from tpufusion_torch.core.trace import device_span, span
 from tpufusion_torch.ops.adam_update import adam_init, fused_adam
 from tpufusion_torch.pipeline import FusionPipeline
 
@@ -145,14 +150,17 @@ def _make_loss(pipeline: FusionPipeline, weights: LossWeights, *, per_image: boo
     rec_feats_grad = w.lpips_rec_target != 0.0 or w.lpips_rec_org != 0.0
 
     def loss_fn(x, ref):
-        r_x = avg_pool(x, factor)
-        latent_pred = pipeline.encoder(r_x)
-        img_rec = pipeline.decode(latent_pred)
-        # unless a lpips_rec term is weighted, the VGG pass over the
-        # reconstruction only feeds the trace and needs no graph
-        with torch.set_grad_enabled(torch.is_grad_enabled() and rec_feats_grad):
-            feats_rec = pipeline.vgg(avg_pool(img_rec, factor))
-        feats_x = pipeline.vgg(r_x)
+        with device_span("encoder"):
+            r_x = avg_pool(x, factor)
+            latent_pred = pipeline.encoder(r_x)
+        with device_span("synthesis"):
+            img_rec = pipeline.decode(latent_pred)
+        with device_span("vgg16"):
+            # unless a lpips_rec term is weighted, the VGG pass over the
+            # reconstruction only feeds the trace and needs no graph
+            with torch.set_grad_enabled(torch.is_grad_enabled() and rec_feats_grad):
+                feats_rec = pipeline.vgg(avg_pool(img_rec, factor))
+            feats_x = pipeline.vgg(r_x)
         terms = dict(
             latent_target=_mse(ref["latent_target"], latent_pred),
             latent_org=_mse(ref["latent_org"], latent_pred),
@@ -210,7 +218,10 @@ def make_whitebox_stepper(pipeline: FusionPipeline, config: WhiteboxConfig, *,
     def step(state):
         x = state["x"].detach().requires_grad_(True)
         total, terms = loss_fn(x, state["ref"])
-        (g,) = torch.autograd.grad(total.sum(), x)
+        # the whole backward: the engine runs VGG16's between the loss's and
+        # the synthesis's, so no split by module is clean
+        with device_span("backward"):
+            (g,) = torch.autograd.grad(total.sum(), x)
         state["x"], state["opt_state"] = fused_adam(
             state["x"], g.contiguous(), state["opt_state"], config.lr)
         terms = {k: v.detach() for k, v in terms.items()}
@@ -303,11 +314,12 @@ def _program_runner(pipeline: FusionPipeline, config: WhiteboxConfig, *, per_ima
     n = config.n_iters
 
     def body(state, inputs):
-        st = dict(x=state["x"], ref=inputs["ref"], opt_state=state["opt"])
-        _, terms = step(st)
-        for k, v in terms.items():
-            state["trace"][k].index_copy_(-1, state["idx"].view(1), v.unsqueeze(-1))
-        state["idx"].add_(1)
+        with device_span("step"):
+            st = dict(x=state["x"], ref=inputs["ref"], opt_state=state["opt"])
+            _, terms = step(st)
+            for k, v in terms.items():
+                state["trace"][k].index_copy_(-1, state["idx"].view(1), v.unsqueeze(-1))
+            state["idx"].add_(1)
 
     def start(img, target):
         st = init(img, target, on_device=True)
@@ -328,11 +340,12 @@ def _program_runner(pipeline: FusionPipeline, config: WhiteboxConfig, *, per_ima
 
     def run(imgs, targets):
         b = imgs.shape[0]
-        starts = [start(i, t) for i, t in _chunks(imgs, targets,
-                                                  max(int(config.grad_accum or 1), 1))]
-        progs = programs.get(signature(imgs, targets), lambda: build(starts))
-        for prog, (state, inputs) in zip(progs, starts):
-            prog.load(state, inputs)
+        with span("attack.prepare"):
+            starts = [start(i, t) for i, t in _chunks(imgs, targets,
+                                                      max(int(config.grad_accum or 1), 1))]
+            progs = programs.get(signature(imgs, targets), lambda: build(starts))
+            for prog, (state, inputs) in zip(progs, starts):
+                prog.load(state, inputs)
         snaps = _drive(pipeline, config, b, len(progs), lambda ci: progs[ci].run(1),
                        lambda: [p.state["x"] for p in progs])
         trace = {k: torch.cat([p.state["trace"][k] for p in progs]) if per_image

@@ -29,6 +29,15 @@ only replays. The graph holds the addresses of the state, the inputs and
 the parameters of the modules its body reads: these must stay where they
 are while the program lives (``ProgramCache`` keys on them).
 
+While a profiler session records, the warm-up, the capture and the
+replays are host spans (``core/trace.py``): ``program.warmup`` (the eager
+steps and the wait for them, closed by the synchronize the next capture
+starts with; one span for the process, so the chunk programs of a call,
+which warm up in turn, share it),
+``program.capture`` (what ``capture_ms`` times) and ``program.replay`` (one
+call's replays; on the CPU, its body calls); and the body's device spans
+are captured as event nodes of the graph, for ``trace.replay_ms()``.
+
 On the CPU, where a graph does not exist, ``run`` calls the body. The
 eager loops (``attacks/pgd.py::pgd_eager`` and its kin) are the plain
 twins the programs are held against.
@@ -41,8 +50,22 @@ import time
 import torch
 
 from tpufusion_torch import ops
+from tpufusion_torch.core import trace
 
 WARMUP = 1  # eager steps a program takes on its own state before its capture
+_warming = None  # the open ``program.warmup`` span, while tracing
+
+
+def _open_warm_span() -> None:
+    global _warming
+    if _warming is None:
+        _warming = trace.begin("program.warmup")
+
+
+def _close_warm_span() -> None:
+    global _warming
+    trace.end(_warming)
+    _warming = None
 
 
 def map_tensors(fn, tree):
@@ -145,6 +168,7 @@ class StepProgram:
         self.launches: dict = {}
         self.replays = 0
         self.released = False
+        self.record = None  # the capture's trace.ProgramRecord, while tracing
 
     @property
     def warm_left(self) -> int:
@@ -152,12 +176,17 @@ class StepProgram:
         return 0 if self.device.type != "cuda" else max(WARMUP - self.warmed, 0)
 
     def _warm_up(self, n: int) -> None:
+        _open_warm_span()
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            for _ in range(n):
-                self.body(self.state, self.inputs)
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(n):
+                    self.body(self.state, self.inputs)
+        except BaseException:
+            _close_warm_span()
+            raise
         main.wait_stream(side)
         self.warmed += n
 
@@ -169,27 +198,31 @@ class StepProgram:
             return
         if self.device.type != "cuda" or self.warm_left:
             raise RuntimeError("a step program captures on the card, after its warm-up steps")
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        before = ops.launch_counts()
-        ptrs = [t.data_ptr() for t in tensor_leaves(self.state)]
-        pool = None if self.pool_of is None else self.pool_of.pool
-        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=pool):
-                self.body(self.state, self.inputs)
+            torch.cuda.synchronize(self.device)
         finally:
-            # the capture launched nothing (nor did a failed one): its
-            # counts go back out
-            after = ops.launch_counts()
-            self.launches = {k: after[k] - before[k] for k in after}
-            _add_counts(self.launches, -1)
-        torch.cuda.synchronize(self.device)
-        if [t.data_ptr() for t in tensor_leaves(self.state)] != ptrs:
-            raise RuntimeError("the step body replaced a static buffer of its state; "
-                               "it must write them in place")
-        self.graph = graph
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+            _close_warm_span()
+        with trace.span("program.capture"):
+            t0 = time.perf_counter()
+            before = ops.launch_counts()
+            ptrs = [t.data_ptr() for t in tensor_leaves(self.state)]
+            pool = None if self.pool_of is None else self.pool_of.pool
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with trace.capture() as record, torch.cuda.graph(graph, pool=pool):
+                    self.body(self.state, self.inputs)
+            finally:
+                # the capture launched nothing (nor did a failed one): its
+                # counts go back out
+                after = ops.launch_counts()
+                self.launches = {k: after[k] - before[k] for k in after}
+                _add_counts(self.launches, -1)
+            torch.cuda.synchronize(self.device)
+            if [t.data_ptr() for t in tensor_leaves(self.state)] != ptrs:
+                raise RuntimeError("the step body replaced a static buffer of its state; "
+                                   "it must write them in place")
+            self.graph, self.record = graph, record
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     @property
     def pool(self):
@@ -212,8 +245,9 @@ class StepProgram:
                              f"state takes: load a new one first")
         self.taken += n
         if self.device.type != "cuda":
-            for _ in range(n):
-                self.body(self.state, self.inputs)
+            with trace.span("program.replay"):
+                for _ in range(n):
+                    self.body(self.state, self.inputs)
             self.replays += n
             return
         warm = min(n, self.warm_left)
@@ -221,16 +255,22 @@ class StepProgram:
             self._warm_up(warm)
             n -= warm
         if not n:
+            if self.taken == self.limit:  # no capture before the next load
+                _close_warm_span()
             return
         self.capture()
-        for _ in range(n):
-            self.graph.replay()
-        self.replays += n
-        _add_counts(self.launches, n)
+        with trace.span("program.replay"):
+            for _ in range(n):
+                self.graph.replay()
+            self.replays += n
+            _add_counts(self.launches, n)
+        if self.record is not None:
+            self.record.replayed = True
 
     def release(self) -> None:
         """Free the graph and its memory pool (the static buffers go with
         the program)."""
+        _close_warm_span()
         if self.graph is not None:
             self.graph.reset()
             self.graph = None

@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpufusion_torch.core import trace
 from tpufusion_torch.ops import _lib
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -164,11 +165,8 @@ def fused_adam(x: torch.Tensor, g: torch.Tensor, state: dict, lr):
     else:
         step = count if on_device else step_index(x.device, count)
         adam_update_kernel(x, g, state["mu"], state["nu"], lr, bias_table(x.device), step)
-        fused_adam.launches += 1
+        trace.count("fused_adam")
     if on_device:
         count.add_(1)
         return x, state
     return x, dict(mu=state["mu"], nu=state["nu"], count=count + 1)
-
-
-fused_adam.launches = 0

@@ -40,6 +40,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from tpufusion_torch.core import trace
 from tpufusion_torch.ops import _lib
 
 CHANNELS = (32, 64)
@@ -323,7 +324,7 @@ class _Conv3x3(torch.autograd.Function):
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
         y = conv3x3_forward_kernel(x, w)
-        conv3x3.launches_fwd += 1
+        trace.count("conv3x3_fwd")
         return y
 
     @staticmethod
@@ -333,10 +334,10 @@ class _Conv3x3(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = conv3x3_input_grad_kernel(g, w)
-            conv3x3.launches_dgrad += 1
+            trace.count("conv3x3_dgrad")
         if ctx.needs_input_grad[1]:
             dw = conv3x3_weight_grad_kernel(x, g).to(w.dtype)
-            conv3x3.launches_wgrad += 1
+            trace.count("conv3x3_wgrad")
         return dx, dw
 
 
@@ -347,8 +348,3 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3_plain(x, w)
     return _Conv3x3.apply(x, w)
-
-
-conv3x3.launches_fwd = 0
-conv3x3.launches_dgrad = 0
-conv3x3.launches_wgrad = 0

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from tpufusion_torch.core import trace
 from tpufusion_torch.ops import _lib
 
 
@@ -69,8 +70,5 @@ def pgd_update(adv, grad, images, alpha, eps, clip_min=-1.0, clip_max=1.0):
     if adv.device.type == "cpu":
         return pgd_update_plain(adv, grad, images, alpha, eps, clip_min, clip_max)
     out = pgd_update_kernel(adv, grad, images, alpha, eps, clip_min, clip_max)
-    pgd_update.launches += 1
+    trace.count("pgd_update")
     return out
-
-
-pgd_update.launches = 0

@@ -34,6 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from tpufusion_torch.core import trace
 from tpufusion_torch.ops import _lib, conv3x3
 from tpufusion_torch.ops.modconv import modulated_conv2d
 
@@ -153,7 +154,7 @@ def styled_conv_op(x: torch.Tensor, weight: torch.Tensor, style: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """The fused kernel on CUDA tensors (one launch, counted)."""
     y = styled_conv_kernel(x.contiguous(), weight, style, noise, noise_strength, bias)
-    styled_conv.launches += 1
+    trace.count("styled_conv")
     return y
 
 
@@ -197,6 +198,3 @@ def styled_conv(x, weight, style, noise, noise_strength, bias):
         # the operator has no implementation there: the launch's checks raise
         return styled_conv_kernel(x.contiguous(), weight, style, noise, noise_strength, bias)
     return styled_conv_op(x, weight, style, noise, noise_strength, bias)
-
-
-styled_conv.launches = 0

@@ -47,6 +47,7 @@ from tpufusion_torch.attacks.whitebox import (
 )
 from tpufusion_torch.configs import AttackRunConfig
 from tpufusion_torch.core.prng import split_generator
+from tpufusion_torch.core.trace import spanned
 from tpufusion_torch.eval import ResultsTable, benign_fusion, fused_image_metrics, partial_adv_fusion
 from tpufusion_torch.eval.metrics import mse_per_image
 from tpufusion_torch.io import ArtifactStore, new_adv_dir, new_run_folder, save_image, save_montage, write_parameters
@@ -205,6 +206,7 @@ def resolve_whitebox_execution(execution: str, snapshots_active: bool) -> str:
     return execution
 
 
+@spanned("runner.dispatch")
 def dispatch_attack(
     pipeline: FusionPipeline,
     attack: str,
@@ -227,7 +229,8 @@ def dispatch_attack(
     ``train_patch_sharded``, ``pgd``/``fgsm``/``pgd_classifier`` via
     ``run_pgd_sharded`` and ``cw``/``cw_classifier`` via ``run_cw_sharded``;
     each is held to its single-device form in
-    ``tests/test_torch_parallel.py``."""
+    ``tests/test_torch_parallel.py``. While a profiler session records, the
+    call is the host span ``runner.dispatch`` (``core/trace.py``)."""
     size = pipeline.image_size
     use_mesh = uses_mesh(mesh)
     device = _device(pipeline)

@@ -3,21 +3,19 @@
 
 - ``EasyDict``: attribute-style dict (`dnnlib/util.py:40`).
 - ``Logger``: stdout/stderr tee to a file (`dnnlib/util.py:56-117`).
-- ``StepTimer``: wall-clock per-step timing; ``stop(result)`` waits for the
-  card when ``result`` holds a CUDA tensor.
 - ``trace_profile``: context manager writing a ``torch.profiler`` chrome
-  trace into a directory.
+  trace into a directory, and beside it each traced step program's device
+  ms by span in its last replay (``core/trace.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
-import time
 from typing import Any, Optional
 
-import numpy as np
 import torch
 
 
@@ -105,41 +103,6 @@ class Logger:
             self.file = None
 
 
-def _holds_cuda_tensor(result) -> bool:
-    if isinstance(result, torch.Tensor):
-        return result.is_cuda
-    if isinstance(result, dict):
-        return any(_holds_cuda_tensor(v) for v in result.values())
-    if isinstance(result, (list, tuple)):
-        return any(_holds_cuda_tensor(v) for v in result)
-    return False
-
-
-class StepTimer:
-    """Per-step wall timing; ``stop(result)`` synchronizes the card first
-    when ``result`` holds a CUDA tensor, so the time covers the work queued
-    for it. Keeps a history so callers can report steps/sec past warm-up."""
-
-    def __init__(self):
-        self.times: list[float] = []
-        self._t0: Optional[float] = None
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, result=None) -> float:
-        if result is not None and _holds_cuda_tensor(result):
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - self._t0
-        self.times.append(dt)
-        return dt
-
-    def steps_per_sec(self, skip: int = 1) -> float:
-        """Mean throughput, skipping the first ``skip`` (warm-up) steps."""
-        ts = self.times[skip:] if len(self.times) > skip else self.times
-        return 1.0 / float(np.mean(ts)) if ts else 0.0
-
-
 def aggregate_loss_dict(agg_loss_dict):
     """Mean per key over a list of loss dicts (`utils/train_utils.py:2-13`)."""
     mean_vals: dict = {}
@@ -156,13 +119,22 @@ def aggregate_loss_dict(agg_loss_dict):
 def trace_profile(log_dir: str):
     """``with trace_profile(dir):`` records the region with ``torch.profiler``
     (CPU, and CUDA when a card is present) and writes a chrome trace,
-    ``dir/trace.json``, when it ends."""
+    ``dir/trace.json``, when it ends, and ``dir/replay_ms.json``: for each
+    step program captured while it recorded, ``{span: ms}`` of its last
+    replay (``trace.replay_ms()``; a list, empty on the CPU), and then drops
+    those programs from the tracer's record."""
     from torch.profiler import ProfilerActivity, profile
+
+    from tpufusion_torch.core import trace
 
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    first = len(trace.PROGRAMS)
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    with open(os.path.join(log_dir, "replay_ms.json"), "w") as f:
+        json.dump(trace.replay_ms(first), f, indent=1)
+    del trace.PROGRAMS[first:]  # written: the record holds each traced program until read
