@@ -22,7 +22,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    phase 5h's car and church: styled_conv at batch 4 over the 512^2
    generator's shapes and batch 3 over the 256^2 one's, conv3x3 at
    4 x 512^2 c64, pgd_update and fused_adam on 4 x 512^2 x 3 and
-   3 x 256^2 x 3),
+   3 x 256^2 x 3; styled_conv_up, bf16 only, at the synthesis's up convs
+   at the white-box batch 5 and car's batch 4, held to the folded
+   composite and timed beside the unfolded chain it replaced),
    in float32 (TF32 off) and bfloat16, with times, and untimed at the
    ragged tile and TMA-box edges of the bf16 forward (planes not a multiple
    of the tile, 1-3 pixels a side, Cin 48, Cout 96, bf16 inputs 2 bytes off
@@ -438,6 +440,18 @@ STYLED_RAGGED = [(3, 70, 90, 128, 256), (4, 30, 20, 48, 192), (3, 3, 37, 48, 96)
                  (2, 13, 21, 64, 64), (2, 5, 9, 512, 512), (30, 50, 2, 128, 128),
                  (2, 30, 50, 128, 192), (5, 3, 1, 512, 512), (3, 200, 190, 32, 32)]
 CONV_RAGGED = [(2, 37, 53, 64), (1, 33, 70, 32), (3, 1, 2, 32), (2, 3, 1, 64), (1, 130, 257, 64)]
+# styled_conv_up (bf16 only): the synthesis's up convs, (input plane, Cin,
+# Cout), x (N, h, h, Cin) -> y (N, 2h, 2h, Cout), timed at the white-box
+# batch (FFHQ's 8) and car's (its 7, to 512^2); then ragged edges untimed
+# (every tile class of the phase conv Cin -> 4 Cout, planes not a multiple
+# of the tile, 1-3 pixels a side, Cout 8-24 where an 8-channel part or a
+# block holds several phases)
+UP_SHAPES = [(4, 512, 512), (8, 512, 512), (16, 512, 512), (32, 512, 512), (64, 512, 256),
+             (128, 256, 128), (256, 128, 64), (512, 64, 32)]
+UP_BATCHES = {5: ("whitebox", 1024), 4: ("car", 512)}
+UP_RAGGED = [(2, 13, 13, 64, 8), (2, 40, 40, 32, 16), (1, 3, 37, 64, 64), (3, 70, 90, 128, 64),
+             (1, 9, 21, 48, 32), (4, 30, 20, 48, 48), (1, 1, 1, 32, 32), (2, 2, 3, 48, 16),
+             (3, 16, 16, 512, 512), (2, 33, 17, 16, 24)]
 # bf16 inputs 2 bytes past a 16-byte boundary (the wrappers copy them to an
 # aligned buffer for the TMA): styled_conv and conv3x3 cases of the lists above
 VIEW_OFF = {"styled": (3, 19, 35, 32, 32), "conv": (2, 37, 53, 64)}
@@ -775,6 +789,39 @@ def check_kernels(torch, records, floor=None):
                        pixel=pixel_timings(
                            torch, lambda *t: pu.pgd_update_kernel(*t, *args[3:]), views,
                            bound_ms(nbytes, 7 * numel, dtype_name)[0]) if timed else None)
+    # the styled up conv (bf16 only): against the folded composite; timed
+    # beside the parent's unfolded chain (transposed conv, blur,
+    # demodulation, epilogue) as the plain yardstick
+    up_cases = [(n, h, h, cin, cout, path) for n, (path, top) in UP_BATCHES.items()
+                for h, cin, cout in UP_SHAPES if 2 * h <= top]
+    up_cases += [(*shape, None) for shape in UP_RAGGED]
+    for n, h, wd, cin, cout, path in up_cases:
+        x = rn(n, h, wd, cin, dtype=torch.bfloat16)
+        args = (x, rn(3, 3, cin, cout, dtype=torch.float32),
+                rn(n, cin, dtype=torch.float32) * 0.5 + 1.0,
+                rn(1, 2 * h, 2 * wd, 1, dtype=torch.float32), torch.tensor(0.1, device=dev),
+                rn(cout, dtype=torch.float32) * 0.1)
+        case = f"n{n} {h}^2 c{cin}->{cout}" if h == wd else f"n{n} {h}x{wd} c{cin}->{cout}"
+        y = sc.styled_conv_up_kernel(*args)
+        again = sc.styled_conv_up_kernel(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            failures.append(f"styled_conv_up {case}: two launches on the same inputs differ")
+        err, rel = _err(torch, y, sc.styled_conv_up_reference(*args))
+        y_bytes = n * 4 * h * wd * cout * 2
+        conv = (conv_timings(torch, sc.styled_conv_up_launcher, sc.styled_conv_up_kernel,
+                             sc.styled_conv_up_plain, args, y_bytes)
+                if path is not None else None)
+        extra = {"mma_class": c3.mma_class(n, h, wd, cin, 4 * cout).name}
+        if conv is not None:  # the folded composite, the route of what the kernel does not take
+            extra["composite_ms"] = statistics.median(
+                cold_ms(torch, sc.styled_conv_up_reference, list(args)))
+        record("styled_conv_up", case, "bfloat16", err, rel,
+               nbytes=n * h * wd * cin * 2 + y_bytes + 9 * cin * 4 * cout * 2,
+               ops=2 * 9 * cin * 4 * cout * n * h * wd, path=path, conv=conv,
+               extra_fields=extra)
+        if conv is not None:
+            log(f"    folded composite {extra['composite_ms']:.4f} ms cold [graph replay]")
     # fused Adam (float32 only): the white-box pixel buffer and an odd size,
     # aligned and on views off a 16-byte boundary, at steps 1 and 50
     for shape, path in ADAM_SHAPES.items():
@@ -1335,17 +1382,20 @@ HOST_REPLAYS = 5  # replays timed one at a time for the host us a replay
 # its kernel; the conv3x3 forward and input grad share one kernel, so the
 # profiler sees their sum
 GROUP_COUNTS = {"styled_conv bf16": "styled_conv", "styled_conv fp32": "styled_conv",
+                "styled_conv_up bf16": "styled_conv_up",
                 "conv3x3_fwd/dgrad bf16": "conv3x3_fwd+dgrad",
                 "conv3x3_fwd/dgrad fp32": "conv3x3_fwd+dgrad",
                 "conv3x3_wgrad bf16": "conv3x3_wgrad", "conv3x3_wgrad fp32": "conv3x3_wgrad",
                 "pgd_update": "pgd_update", "fused_adam": "fused_adam"}
-AUDITED = ("styled_conv", "conv3x3_fwd+dgrad", "conv3x3_wgrad", "pgd_update", "fused_adam")
+AUDITED = ("styled_conv", "styled_conv_up", "conv3x3_fwd+dgrad", "conv3x3_wgrad", "pgd_update",
+           "fused_adam")
 
 
 def audited_counts(counts):
     """``launch_counts``-keyed counts as the profiler can tell them apart
     (``AUDITED`` keys)."""
     return {"styled_conv": counts.get("styled_conv", 0),
+            "styled_conv_up": counts.get("styled_conv_up", 0),
             "conv3x3_fwd+dgrad": counts.get("conv3x3_fwd", 0) + counts.get("conv3x3_dgrad", 0),
             "conv3x3_wgrad": counts.get("conv3x3_wgrad", 0),
             "pgd_update": counts.get("pgd_update", 0), "fused_adam": counts.get("fused_adam", 0)}
@@ -1500,7 +1550,7 @@ class LaunchAudit:
         sum measured)."""
         got = self.per_replay[prog]
         return dict(prog.launches, styled_conv=got["styled_conv"],
-                    conv3x3_wgrad=got["conv3x3_wgrad"], pgd_update=got["pgd_update"],
+                    styled_conv_up=got["styled_conv_up"], conv3x3_wgrad=got["conv3x3_wgrad"], pgd_update=got["pgd_update"],
                     fused_adam=got["fused_adam"])
 
     def reset(self):
@@ -1517,7 +1567,7 @@ class LaunchAudit:
                  f"were never measured")
         counts = ops.launch_counts()
         out = dict(counts)
-        for k in ("styled_conv", "conv3x3_wgrad", "pgd_update", "fused_adam"):
+        for k in ("styled_conv", "styled_conv_up", "conv3x3_wgrad", "pgd_update", "fused_adam"):
             out[k] = counts[k] - self.booked[k] + self.measured[k]
         return out
 
@@ -4153,6 +4203,7 @@ def time_blender(torch, card, pipe, reps=5):
 # that matches); the styled and plain instantiations of the shared conv
 # kernels, and their fp32 (CUDA cores) and bf16 (tensor cores) routes, apart
 KERNEL_NAMES = (("conv3x3_wgmma_kernel<true", "styled_conv bf16"),
+                ("styled_conv_up_wgmma_kernel", "styled_conv_up bf16"),
                 ("conv3x3_wgmma_kernel<false", "conv3x3_fwd/dgrad bf16"),
                 ("conv3x3_fwd_kernel<float, true>", "styled_conv fp32"),
                 ("conv3x3_fwd_kernel<float, false>", "conv3x3_fwd/dgrad fp32"),

@@ -820,17 +820,19 @@ def test_deterministic_restores_the_flags(smoke):
 STYLED_ROW = "void tf::conv3x3_wgmma_kernel<true, tf::WgTile<16, 16, 2, 1, 4, 32, 32, 8, 1, 1>>"
 CONV_ROW = "void tf::conv3x3_wgmma_kernel<false, tf::WgTile<8, 16, 2, 2, 1, 64, 32, 3, 0, 1>>"
 PGD_ROW = "void tf_stream::stream_reg_kernel<float, 3, 1, (anonymous namespace)::PgdOp<float>, 1>"
+UP_ROW = "void tf::styled_conv_up_wgmma_kernel<tf::WgTile<16, 16, 2, 2, 2, 128, 16, 4, 0, 1>>"
 
 
 def test_kernel_counts_read_each_wrappers_kernel(smoke):
-    rows = [(STYLED_ROW, 1.0, 9), (CONV_ROW, 0.5, 4), (PGD_ROW, 0.1, 1),
+    rows = [(STYLED_ROW, 1.0, 9), (CONV_ROW, 0.5, 4), (PGD_ROW, 0.1, 1), (UP_ROW, 1.5, 8),
             ("void at::native::elementwise_kernel<128, 4>", 2.0, 404),
             ("void tf::sum_partials_kernel", 0.01, 1)]
     got = smoke.kernel_counts(rows)
-    assert got == {"styled_conv": 9, "conv3x3_fwd+dgrad": 4, "conv3x3_wgrad": 0,
-                   "pgd_update": 1, "fused_adam": 0}
-    booked = smoke.audited_counts({"styled_conv": 9, "conv3x3_fwd": 2, "conv3x3_dgrad": 2,
-                                   "conv3x3_wgrad": 0, "pgd_update": 1, "fused_adam": 0})
+    assert got == {"styled_conv": 9, "styled_conv_up": 8, "conv3x3_fwd+dgrad": 4,
+                   "conv3x3_wgrad": 0, "pgd_update": 1, "fused_adam": 0}
+    booked = smoke.audited_counts({"styled_conv": 9, "styled_conv_up": 8, "conv3x3_fwd": 2,
+                                   "conv3x3_dgrad": 2, "conv3x3_wgrad": 0, "pgd_update": 1,
+                                   "fused_adam": 0})
     assert smoke.replay_count_failures("pgd", got, booked) == []
     short = smoke.replay_count_failures("pgd", dict(got, pgd_update=0), booked)
     assert len(short) == 1 and "pgd_update 0" in short[0]

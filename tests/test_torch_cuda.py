@@ -110,6 +110,66 @@ def test_styled_conv_bf16_autograd(cuda):
         _close(got, want, torch.bfloat16)
 
 
+def _up_args(gen, n, h, w, cin, cout):
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    return (rn(n, h, w, cin).bfloat16(), rn(3, 3, cin, cout), rn(n, cin) * 0.5 + 1,
+            rn(1, 2 * h, 2 * w, 1), torch.tensor(0.2, device="cuda"), rn(cout) * 0.1)
+
+
+# the styled up conv (bf16): the up convs of FFHQ's and car's synthesis at
+# batch 1 (input plane, Cin, Cout), then every tile class of the phase conv
+# Cin -> 4 Cout on ragged planes, Cout 8-24 where a block or an 8-channel
+# part holds several phases; two launches give the same bits
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 4, 4, 512, 512), (1, 8, 8, 512, 512), (1, 16, 16, 512, 512), (1, 32, 32, 512, 512),
+    (1, 64, 64, 512, 256), (1, 128, 128, 256, 128), (1, 256, 256, 128, 64),
+    (1, 512, 512, 64, 32), (2, 13, 13, 64, 8), (2, 40, 40, 32, 16), (3, 70, 90, 128, 64),
+    (4, 30, 20, 48, 48), (1, 1, 1, 32, 32), (2, 33, 17, 16, 24), (5, 4, 4, 512, 512)])
+def test_styled_conv_up_kernel(cuda, n, h, w, cin, cout):
+    args = _up_args(cuda, n, h, w, cin, cout)
+    y = sc.styled_conv_up_kernel(*args)
+    assert tuple(y.shape) == (n, 2 * h, 2 * w, cout)
+    _close(y, sc.styled_conv_up_reference(*args), torch.bfloat16)
+    _close(y, sc.styled_conv_up_plain(*args), torch.bfloat16)
+    assert torch.equal(y, sc.styled_conv_up_kernel(*args))
+
+
+def test_styled_conv_up_autograd(cuda):
+    """On the card the up operator's forward is the kernel (counted), its
+    gradients with respect to x and the style those of the folded composite."""
+    x, w, s, noise, ns, b = _up_args(cuda, 2, 24, 20, 64, 32)
+    ins = [t.clone().requires_grad_(True) for t in (x, s)]
+    before = launch_counts()["styled_conv_up"]
+    y = sc.styled_conv_up(ins[0], w, ins[1], noise, ns, b)
+    assert launch_counts()["styled_conv_up"] == before + 1
+    g = torch.randn(y.shape, generator=cuda, device="cuda").to(y.dtype)
+    refs = [t.clone().requires_grad_(True) for t in (x, s)]
+    y_ref = sc.styled_conv_up_reference(refs[0], w, refs[1], noise, ns, b)
+    _close(y, y_ref, torch.bfloat16)
+    for got, want in zip(torch.autograd.grad(y, ins, g), torch.autograd.grad(y_ref, refs, g)):
+        _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("size", [64, 256])
+def test_a_bf16_synthesis_launches_each_up_conv_once(cuda, size):
+    """One bf16 synthesis forward launches the up kernel log2(size) - 2
+    times (each up conv once) and the styled kernel log2(size) - 1 times."""
+    from tpufusion_torch.core.dtypes import Policy
+    from tpufusion_torch.models.stylegan2 import Generator
+
+    gen = Generator(size, channel_multiplier=1, policy=Policy(compute_dtype=torch.bfloat16),
+                    device="cuda", generator=torch.Generator(device="cuda").manual_seed(4))
+    z = torch.randn(2, 512, generator=cuda, device="cuda")
+    before = launch_counts()
+    with torch.no_grad():
+        img = gen([z]).image
+    after = launch_counts()
+    log2 = size.bit_length() - 1
+    assert after["styled_conv_up"] - before["styled_conv_up"] == log2 - 2
+    assert after["styled_conv"] - before["styled_conv"] == log2 - 1
+    assert torch.isfinite(img).all()
+
+
 # partial tiles of both Narrow classes and planes of 1-3 pixels a side;
 # two launches give the same bits
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -346,6 +406,29 @@ def test_whitebox_graph_equals_the_eager_loop(small_pipeline):
         cfg = wb.WhiteboxConfig(lr=1e-2, n_iters=5, **kw)
         got = wb.make_per_image_whitebox(p, cfg)(x, t)
         assert _tree_equal(got, wb.run_eager(p, cfg, x, t, per_image=True)), kw
+
+
+def test_bf16_whitebox_graph_equals_the_eager_loop(deterministic):
+    """A bf16 32^2 pipeline, whose up convs run the up kernel: the graphed
+    white-box attack gives the eager loop's bits, and a replay launches the
+    up kernel once per up conv."""
+    from tpufusion_torch.attacks import whitebox as wb
+    from tpufusion_torch.core.dtypes import Policy
+    from tpufusion_torch.pipeline import FusionPipeline
+
+    p = FusionPipeline.create("ffhq", size=32, channel_multiplier=1, encoder_base_channels=16,
+                              encoder_units=(1, 1, 1, 1), encoder_input_size=32,
+                              mean_latent_samples=32, policy=Policy(compute_dtype=torch.bfloat16),
+                              device="cuda", seed=6)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.rand((3, 32, 32, 3), generator=g, device="cuda") * 2 - 1
+    t = torch.rand((1, 32, 32, 3), generator=g, device="cuda") * 2 - 1
+    cfg = wb.WhiteboxConfig(lr=1e-2, n_iters=4)
+    attack = wb.make_per_image_whitebox(p, cfg)
+    got = attack(x, t)
+    assert [prog.launches["styled_conv_up"] for prog in attack.programs] == [3]
+    assert _tree_equal(got, wb.run_eager(p, cfg, x, t, per_image=True))
+    attack.programs.release()
 
 
 def test_whitebox_traced_capture_replays_bit_equal(small_pipeline):

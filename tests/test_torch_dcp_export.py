@@ -16,7 +16,9 @@ process (a one-rank gloo group; the two-rank DCP resume is in
 - ``export_programs --tiny``: a serving process's view, ``load_program`` +
   ``load_pytree`` and no model code, decodes as the live generator;
 - ``torch.library.opcheck`` of the operator on the CPU, its backward equal
-  to autograd of the composite, and its fake shape.
+  to autograd of the composite, and its fake shape; the same of the up
+  operator ``tpufusion::styled_conv_up`` in bf16, and a bf16 synthesis
+  exported with one node per styled conv of either kind.
 """
 
 import os
@@ -212,3 +214,54 @@ def test_styled_conv_operator_opcheck(shape):
                                        ys)
     for a, b in ((gx, hx), (gw, hw), (gs, hs)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 4, 32, 32), (1, 5, 3, 16, 24), (2, 8, 8, 64, 32)])
+def test_styled_conv_up_operator_opcheck(shape):
+    """``tpufusion::styled_conv_up`` on the CPU (bf16, the shapes it takes):
+    opcheck, the folded composite's bits, the fake's shape and dtype, and
+    the backward as autograd of the composite."""
+    n, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(7)
+    args = [torch.randn(n, h, w, cin, generator=g).bfloat16(),
+            torch.randn(3, 3, cin, cout, generator=g),
+            torch.randn(n, cin, generator=g) * 0.5 + 1,
+            torch.randn(1, 2 * h, 2 * w, 1, generator=g), torch.tensor(0.2),
+            torch.randn(cout, generator=g) * 0.1]
+    assert sc.up_supported(args[0].shape, args[1].shape, args[3].shape, args[0].dtype)
+    torch.library.opcheck(sc.styled_conv_up_op, args)
+    want = sc.styled_conv_up_reference(*args)
+    assert torch.equal(sc.styled_conv_up(*args), want)
+    assert tuple(want.shape) == (n, 2 * h, 2 * w, cout) and want.dtype == torch.bfloat16
+    with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+        fake = sc.styled_conv_up_op(*[mode.from_tensor(a) for a in args])
+    assert tuple(fake.shape) == tuple(want.shape) and fake.dtype == want.dtype
+    xs = [args[0].clone().requires_grad_(True), args[2].clone().requires_grad_(True)]
+    (gx, gs) = torch.autograd.grad(
+        sc.styled_conv_up(xs[0], args[1], xs[1], *args[3:]).float().square().sum(), xs)
+    ys = [args[0].clone().requires_grad_(True), args[2].clone().requires_grad_(True)]
+    (hx, hs) = torch.autograd.grad(
+        sc.styled_conv_up_reference(ys[0], args[1], ys[1], *args[3:]).float().square().sum(),
+        ys)
+    assert torch.equal(gx, hx) and torch.equal(gs, hs)
+
+
+def test_exported_bf16_decode_has_a_node_per_styled_conv(tmp_path):
+    """A bf16 32^2 synthesis exports with one ``tpufusion::styled_conv``
+    node per non-upsampling styled conv and one ``tpufusion::styled_conv_up``
+    node per up conv (log2(size) - 2), and the loaded program decodes as
+    the eager forward."""
+    from tpufusion_torch.core.dtypes import Policy
+    from tpufusion_torch.models.stylegan2 import Generator
+
+    gen = Generator(32, channel_multiplier=1, policy=Policy(compute_dtype=torch.bfloat16),
+                    device="cpu", generator=torch.Generator().manual_seed(8)).requires_grad_(False)
+    pipe = type("P", (), {"generator": gen})()
+    dec = load_program(export_decode(pipe, str(tmp_path / "decode.pt2")))
+    targets = [str(n.target) for n in dec.exported.graph.nodes if n.op == "call_function"]
+    assert sum("tpufusion.styled_conv_up" in t for t in targets) == 3
+    assert sum("tpufusion.styled_conv." in t for t in targets) == 4
+    codes = torch.randn(1, gen.n_latent, 512, generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        want = gen([codes], input_is_latent=True).image
+    assert torch.equal(dec(module_params(gen), codes), want)

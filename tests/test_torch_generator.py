@@ -68,6 +68,33 @@ class TestGenerator:
         for ft, fj in zip(out_t.features, out_j.features):
             np.testing.assert_allclose(ft.numpy(), np.asarray(fj), **TOL)
 
+    def test_folded_up_convs_hold_the_synthesis_to_jax(self, jax_gen32, monkeypatch):
+        """The synthesis with its up convs folded (the bf16 path, here in
+        float32) and unfolded (transposed conv and blur: the float32 path)
+        both match JAX's image and features at TOL, and each other at 1e-5
+        of the largest entry."""
+        from tpufusion_torch.ops import styled_conv as sc
+        from tpufusion_torch.ops.modconv import modulated_conv2d_up_folded
+
+        def folded(x, weight, style, noise, noise_strength, bias):
+            y = modulated_conv2d_up_folded(x, weight, style, blur_taps=sc.UP_TAPS)
+            return sc.noise_bias_act(y, noise, noise_strength, bias)
+
+        gen, variables, g = jax_gen32
+        z = np.random.default_rng(11).standard_normal((2, 512)).astype(np.float32)
+        out_j = jax.jit(lambda v, a: gen.apply(v, [a]))(variables, z)
+        outs = []
+        for reference in (folded, sc.styled_conv_up_plain):
+            monkeypatch.setattr(sc, "styled_conv_up_reference", reference)
+            with torch.no_grad():
+                out = g(torch.from_numpy(z))
+            np.testing.assert_allclose(out.image.numpy(), np.asarray(out_j.image), **TOL)
+            for ft, fj in zip(out.features, out_j.features):
+                np.testing.assert_allclose(ft.numpy(), np.asarray(fj), **TOL)
+            outs.append([out.image, *out.features])
+        for a, b in zip(*outs):
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item()
+
     def test_style_vector_round_trip_is_bit_exact(self, jax_gen32):
         _, _, g = jax_gen32
         z = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 512))

@@ -29,6 +29,7 @@ from tpufusion_torch.ops import adam_update as au
 from tpufusion_torch.ops import conv3x3 as c3
 from tpufusion_torch.ops import pgd_update as pu
 from tpufusion_torch.ops import styled_conv as sc
+from tpufusion_torch.ops.modconv import modulated_conv2d_up_folded, modulated_conv2d_up_plain
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 
@@ -87,6 +88,33 @@ class TestModulatedConv:
         y_t = ops.modulated_conv2d(_t(x), _t(w), _t(s), demodulate=demod, up=up, down=down)
         assert tuple(y_t.shape) == y_j.shape
         np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL)
+
+
+# the up convs of the tiny (32^2, channel multiplier 1) generator, then odd
+# and even planes of other widths, 1^2 included: (n, h, w, cin, cout)
+UP_CASES = [(2, 4, 4, 512, 512), (2, 8, 8, 512, 512), (1, 16, 16, 512, 512), (2, 5, 7, 16, 24),
+            (1, 1, 1, 32, 16), (3, 9, 6, 48, 32)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", UP_CASES)
+def test_folded_up_conv_matches_the_plain_twin(n, h, w, cin, cout):
+    """The up conv folded (one same conv on the phase weights,
+    depth-to-space) against the transposed conv and blur it replaces, in
+    float32: the forward and the gradients with respect to x and the style
+    at 1e-5 of each one's largest entry. (Float32 synthesis runs the
+    unfolded chain; bf16 the folded one.)"""
+    x = _t(_np((n, h, w, cin), 70)).requires_grad_(True)
+    s = _t(_np((n, cin), 71, 0.3, 1.0)).requires_grad_(True)
+    wt = _t(_np((3, 3, cin, cout), 72))
+    g = _t(_np((n, 2 * h, 2 * w, cout), 73))
+    outs = []
+    for fn in (lambda a, b: modulated_conv2d_up_folded(a, wt, b),
+               lambda a, b: modulated_conv2d_up_plain(a, wt, b)):
+        y = fn(x, s)
+        outs.append((y.detach(), *torch.autograd.grad(y, (x, s), g)))
+    assert tuple(outs[0][0].shape) == (n, 2 * h, 2 * w, cout)
+    for got, want in zip(*outs):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 @pytest.fixture
@@ -165,6 +193,21 @@ class TestStyledConv:
         dx_t, ds_t = torch.autograd.grad(y, (xt, st), _t(g))
         np.testing.assert_allclose(dx_t.numpy(), np.asarray(dx_j), **TOL)
         np.testing.assert_allclose(ds_t.numpy(), np.asarray(ds_j), atol=1e-3, rtol=2e-4)
+
+    def test_up_supported_shapes(self):
+        """The up kernel takes bf16, 3x3, Cin % 16 == 0, 4 Cout % 32 == 0 and
+        one shared noise plane at the output's (2H, 2W)."""
+        bf16 = torch.bfloat16
+        assert sc.up_supported((5, 512, 512, 64), (3, 3, 64, 32), (1, 1024, 1024, 1), bf16)
+        assert sc.up_supported((1, 4, 4, 512), (3, 3, 512, 512), (1, 8, 8, 1), bf16)
+        assert sc.up_supported((2, 5, 7, 16), (3, 3, 16, 24), (1, 10, 14, 1), bf16)
+        assert not sc.up_supported((1, 4, 4, 512), (3, 3, 512, 512), (1, 8, 8, 1),
+                                   torch.float32)
+        assert not sc.up_supported((2, 4, 4, 32), (3, 3, 32, 32), (2, 8, 8, 1), bf16)
+        assert not sc.up_supported((1, 4, 4, 32), (3, 3, 32, 32), (1, 4, 4, 1), bf16)
+        assert not sc.up_supported((1, 4, 4, 24), (3, 3, 24, 32), (1, 8, 8, 1), bf16)
+        assert not sc.up_supported((1, 4, 4, 32), (3, 3, 32, 12), (1, 8, 8, 1), bf16)
+        assert not sc.up_supported((1, 4, 4, 32), (1, 1, 32, 32), (1, 8, 8, 1), bf16)
 
     def test_supported_shapes(self):
         assert sc.supported((1, 4, 4, 512), (3, 3, 512, 512), (1, 4, 4, 1))
@@ -313,6 +356,33 @@ def test_styled_conv_kernel_refuses_before_any_build(no_build, case):
     assert no_build == []
 
 
+UP_REFUSED = {
+    "cpu": ({}, ValueError, "must be a CUDA tensor"),
+    "float32": ({"x": _planes(2, 8, 8, 32)}, ValueError, "unsupported shapes or dtype"),
+    "noise at the input's plane": ({"noise": _planes(1, 8, 8, 1)}, ValueError,
+                                   "unsupported shapes"),
+    "per-sample noise": ({"noise": _planes(2, 16, 16, 1)}, ValueError, "unsupported shapes"),
+    "non-contiguous x": ({"x": _strided(2, 8, 8, 32).bfloat16()}, ValueError,
+                         "must be contiguous"),
+    "style": ({"style": _planes(2, 16)}, ValueError, "do not match x and w"),
+}
+
+
+@pytest.mark.parametrize("case", list(UP_REFUSED))
+def test_styled_conv_up_kernel_refuses_before_any_build(no_build, case):
+    """``styled_conv_up_kernel`` raises on tensors off the card, float32, a
+    noise plane not at the output's size or per sample, a non-contiguous x
+    and a style that does not match, before it builds, loads or launches
+    anything."""
+    change, exc, msg = UP_REFUSED[case]
+    args = dict(x=_planes(2, 8, 8, 32, dtype=torch.bfloat16), weight=_planes(3, 3, 32, 32),
+                style=_planes(2, 32), noise=_planes(1, 16, 16, 1), noise_strength=_planes(),
+                bias=_planes(32))
+    with pytest.raises(exc, match=msg):
+        sc.styled_conv_up_kernel(**{**args, **change})
+    assert no_build == []
+
+
 @pytest.mark.parametrize("case", list(CONV_REFUSED))
 @pytest.mark.parametrize("kernel", ["forward", "input_grad"])
 def test_conv3x3_kernel_refuses_before_any_build(no_build, kernel, case):
@@ -454,6 +524,27 @@ def test_phase3_ragged_cases_reach_every_class_and_box_edge():
     assert any(cout == 96 for *_, cout in cases)
     assert smoke.VIEW_OFF["styled"] in smoke.STYLED_RAGGED
     assert smoke.VIEW_OFF["conv"] in smoke.CONV_RAGGED
+
+
+def test_phase3_up_cases_reach_every_class_and_phase_edge():
+    """``chip_smoke.py`` phase 3's styled_conv_up cases put the phase conv
+    (Cin -> 4 Cout) in every tile class, on planes whose height and width
+    are not multiples of the class's tile, and on a Cout below a block's
+    channels (a block then holds several phases); every case is one the
+    kernel takes."""
+    smoke = _chip_smoke()
+    cases = [(n, h, h, cin, cout) for n, (_, top) in smoke.UP_BATCHES.items()
+             for h, cin, cout in smoke.UP_SHAPES if 2 * h <= top] + list(smoke.UP_RAGGED)
+    picked = [(c3.mma_class(n, h, w, cin, 4 * cout), (n, h, w, cin, cout))
+              for n, h, w, cin, cout in cases]
+    assert {cls.name for cls, _ in picked} == {cls.name for cls in c3.MMA_CLASSES}
+    for cls in c3.MMA_CLASSES:
+        mine = [case for got, case in picked if got == cls]
+        assert any(h % cls.th or w % cls.tw for _, h, w, _, _ in mine), cls.name
+    assert any(cout < cls.bn for cls, (*_, cout) in picked)
+    assert any(cout % 32 for *_, cout in cases)
+    assert all(sc.up_supported((n, h, w, cin), (3, 3, cin, cout), (1, 2 * h, 2 * w, 1),
+                               torch.bfloat16) for n, h, w, cin, cout in cases)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

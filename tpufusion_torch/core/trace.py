@@ -31,8 +31,8 @@ import functools
 import torch
 from torch.autograd import profiler as _profiler
 
-LAUNCHES = dict.fromkeys(("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "conv3x3_wgrad",
-                          "pgd_update", "fused_adam"), 0)
+LAUNCHES = dict.fromkeys(("styled_conv", "styled_conv_up", "conv3x3_fwd", "conv3x3_dgrad",
+                          "conv3x3_wgrad", "pgd_update", "fused_adam"), 0)
 _OFF = contextlib.nullcontext()
 
 

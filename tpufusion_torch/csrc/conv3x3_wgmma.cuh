@@ -55,6 +55,14 @@
 // - Epilogue: float32 sigma, bias, noise, leaky-ReLU * sqrt2 on the
 //   accumulators, one rounding to bf16, stmatrix into a per-warp staging
 //   tile, 16-byte stores of NHWC rows.
+// - The styled up conv (styled_conv_up_wgmma_kernel, EPI_UP) is this conv
+//   on phase weights: the stride-2 transposed 3x3 conv and the 4x4 blur
+//   after it fold into one 6x6 transposed conv whose four output phases
+//   each read input offsets {-1, 0, +1}, so Cout = 4 Co phase-major channels
+//   of a "same" 3x3 conv at the input plane. Its epilogue reads sigma and
+//   bias at channel c % Co and the noise of the phase's output pixel, and
+//   stores each 8-channel part at its depth-to-space place in y (N, 2H, 2W,
+//   Co): x read once, y written once.
 // - The Narrow classes give each consumer warpgroup its own tiles (the
 //   stages alternate between them), so neither waits for the other's
 //   epilogue; the other classes share each stage between both.
@@ -327,17 +335,26 @@ using WgSmall = WgTile<8, 8, 1, 1, 1, 32, 32, 4, false, 2>;
 
 constexpr size_t MMA_SMEM_MAX = 232448;  // sm_90: 227 KB of dynamic shared memory a block
 
+// The epilogues of the body below: none (conv3x3), the styled conv's, and
+// the styled up conv's (EPI_UP: Cout = 4 Co phase-major channels, phase
+// p = 2 a + b of channel co stored at output pixel (2 h + a, 2 w + b) of
+// y (N, 2H, 2W, Co); sigma (N, Co), bias (Co); noise (H, W, 4), the
+// pre-scaled noise of each input pixel's four output pixels).
+constexpr int EPI_NONE = 0, EPI_STYLED = 1, EPI_UP = 2;
+
 // y = conv3x3(x [* s]) [epilogue], bf16 in and out. x arrives as the tensor
 // map `xmap` (NHWC, box (CK, TW + 2, TH + 2, 1)); wpk is the packed weights
 // (pack_mma_weights): [Cout / BN][chunks][9][KS][2][BN / 8][8][8]. grid
 // (persistent blocks over the M tiles, Cout / BN); gridDim.x <= M tiles.
-template <bool STYLED, class C>
-__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
-conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                     const __nv_bfloat16* __restrict__ wpk, __nv_bfloat16* __restrict__ y,
-                     const float* __restrict__ style, const float* __restrict__ sigma,
-                     const float* __restrict__ bias, const float* __restrict__ noise, int N,
-                     int H, int W, int Cin, int Cout) {
+// The body of each __global__ kernel below, one per epilogue, so that each
+// keeps a name of its own in a profile.
+template <int EPI, class C>
+__device__ __forceinline__ void conv3x3_wgmma_body(
+    const CUtensorMap& xmap, const __nv_bfloat16* __restrict__ wpk,
+    __nv_bfloat16* __restrict__ y, const float* __restrict__ style,
+    const float* __restrict__ sigma, const float* __restrict__ bias,
+    const float* __restrict__ noise, int N, int H, int W, int Cin, int Cout) {
+  constexpr bool STYLED = EPI != EPI_NONE, UP = EPI == EPI_UP;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -515,14 +532,24 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     const uint32_t o_off = out_off + warp * 16 * C::OUT_PITCH;
     const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3;
     // this lane's sigma and bias pairs (channels co0 + 8 nb + 2 t4, + 1) and
-    // the noise of its rows, all loaded before the first use
+    // the noise of its rows, all loaded before the first use. UP: channel c
+    // is phase c / Co of channel c % Co (Co % 8 == 0, so a pair and an
+    // 8-channel part lie in one phase); phs packs each n8 block's phase in
+    // two bits, and each row keeps the noise of its four output pixels
+    const int Co = UP ? Cout / 4 : Cout;
+    uint32_t phs = 0;
     float2 sg[C::BN / 8], bs[C::BN / 8];
-    float nz[C::MT][2];
+    float nz[C::MT][2][UP ? 4 : 1];
     if (STYLED) {
 #pragma unroll
       for (int nb = 0; nb < C::BN / 8; ++nb) {
-        const int co = co0 + nb * 8 + 2 * t4;
-        sg[nb] = *reinterpret_cast<const float2*>(sigma + (size_t)n * Cout + co);
+        int co = co0 + nb * 8 + 2 * t4;
+        if (UP) {
+          const int ph = (co0 + nb * 8) / Co;
+          phs |= (uint32_t)ph << (2 * nb);
+          co -= ph * Co;
+        }
+        sg[nb] = *reinterpret_cast<const float2*>(sigma + (size_t)n * Co + co);
         bs[nb] = *reinterpret_cast<const float2*>(bias + co);
       }
 #pragma unroll
@@ -531,7 +558,17 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         for (int h = 0; h < 2; ++h) {
           const int m = (g0 + t) * 16 + g + 8 * h;
           const int oh = h0 + m / C::TW, ow = w0 + m % C::TW;
-          nz[t][h] = oh < H && ow < W ? noise[(size_t)oh * W + ow] : 0.f;
+          const bool in = oh < H && ow < W;
+          if constexpr (UP) {
+            const float4 v = in ? *reinterpret_cast<const float4*>(noise + ((size_t)oh * W + ow) * 4)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+            nz[t][h][0] = v.x;
+            nz[t][h][1] = v.y;
+            nz[t][h][2] = v.z;
+            nz[t][h][3] = v.w;
+          } else {
+            nz[t][h][0] = in ? noise[(size_t)oh * W + ow] : 0.f;
+          }
         }
       }
     }
@@ -548,8 +585,13 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
           for (int h = 0; h < 2; ++h) {
             float v0 = acc[t][4 * nb + 2 * h], v1 = acc[t][4 * nb + 2 * h + 1];
             if (STYLED) {
-              v0 = v0 * sg[nb].x + bs[nb].x + nz[t][h];
-              v1 = v1 * sg[nb].y + bs[nb].y + nz[t][h];
+              float z = nz[t][h][0];
+              if constexpr (UP) {
+                const uint32_t ph = (phs >> (2 * nb)) & 3;
+                z = ph == 0 ? z : ph == 1 ? nz[t][h][1] : ph == 2 ? nz[t][h][2] : nz[t][h][3];
+              }
+              v0 = v0 * sg[nb].x + bs[nb].x + z;
+              v1 = v1 * sg[nb].y + bs[nb].y + z;
               v0 = (v0 >= 0.f ? v0 : 0.2f * v0) * 1.4142135623730951f;
               v1 = (v1 >= 0.f ? v1 : 0.2f * v1) * 1.4142135623730951f;
             }
@@ -567,13 +609,46 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
         const int r = i / CH, part = i % CH;
         const int m = grp * 16 + r;
         const int oh = h0 + m / C::TW, ow = w0 + m % C::TW;
-        if (oh < H && ow < W)
-          *reinterpret_cast<uint4*>(y + (((size_t)n * H + oh) * W + ow) * Cout + co0 + part * 8) =
+        if (oh < H && ow < W) {
+          __nv_bfloat16* dst;
+          if (UP) {  // depth-to-space: phase (a, b) to output pixel (2 oh + a, 2 ow + b)
+            const int ph = (phs >> (2 * part)) & 3;
+            dst = y + (((size_t)n * 2 * H + 2 * oh + (ph >> 1)) * 2 * W + 2 * ow + (ph & 1)) * Co +
+                  co0 + part * 8 - ph * Co;
+          } else {
+            dst = y + (((size_t)n * H + oh) * W + ow) * Cout + co0 + part * 8;
+          }
+          *reinterpret_cast<uint4*>(dst) =
               *reinterpret_cast<const uint4*>(smem + o_off + r * C::OUT_PITCH + part * 16);
+        }
       }
       __syncwarp();
     }
   }
+}
+
+// the conv3x3 forward and input grad (STYLED false) and the styled conv
+template <bool STYLED, class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __nv_bfloat16* __restrict__ wpk, __nv_bfloat16* __restrict__ y,
+                     const float* __restrict__ style, const float* __restrict__ sigma,
+                     const float* __restrict__ bias, const float* __restrict__ noise, int N,
+                     int H, int W, int Cin, int Cout) {
+  conv3x3_wgmma_body<STYLED ? EPI_STYLED : EPI_NONE, C>(xmap, wpk, y, style, sigma, bias, noise,
+                                                        N, H, W, Cin, Cout);
+}
+
+// the styled up conv: the phase conv (Cout = 4 Co) with EPI_UP's epilogue
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+styled_conv_up_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                            const __nv_bfloat16* __restrict__ wpk,
+                            __nv_bfloat16* __restrict__ y, const float* __restrict__ style,
+                            const float* __restrict__ sigma, const float* __restrict__ bias,
+                            const float* __restrict__ noise, int N, int H, int W, int Cin,
+                            int Cout) {
+  conv3x3_wgmma_body<EPI_UP, C>(xmap, wpk, y, style, sigma, bias, noise, N, H, W, Cin, Cout);
 }
 
 // ---- host side ---------------------------------------------------------------
@@ -622,7 +697,7 @@ inline int encode_x_map(CUtensorMap* map, const void* x, int N, int H, int W, in
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 
-template <bool STYLED, class C>
+template <bool STYLED, class C, int EPI = STYLED ? EPI_STYLED : EPI_NONE>
 int launch_wgmma(const void* x, const void* wpk, void* y, const float* style, const float* sigma,
                  const float* bias, const float* noise, int N, int H, int W, int Cin, int Cout,
                  cudaStream_t stream) {
@@ -632,7 +707,12 @@ int launch_wgmma(const void* x, const void* wpk, void* y, const float* style, co
   CUtensorMap map;
   const int e = encode_x_map(&map, x, N, H, W, Cin, C::CK, C::TW + 2, C::TH + 2);
   if (e != 0) return e;
-  auto kern = conv3x3_wgmma_kernel<STYLED, C>;
+  auto kern = [] {
+    if constexpr (EPI == EPI_UP)
+      return styled_conv_up_wgmma_kernel<C>;
+    else
+      return conv3x3_wgmma_kernel<STYLED, C>;
+  }();
   static int regs_ok = -1;  // the launch gives each thread what setmaxnreg redistributes
   if (regs_ok < 0) {
     cudaFuncAttributes attr;
@@ -705,6 +785,35 @@ int launch_conv3x3_wgmma(int cls, const void* x, const void* wpk, void* y, const
     case 4:
       return launch_wgmma<STYLED, WgSmall>(x, wpk, y, style, sigma, bias, noise, N, H, W, Cin,
                                            Cout, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The styled up conv: x (N, H, W, Cin) -> y (N, 2H, 2W, Co), the phase conv
+// to Cout = 4 Co channels in the tile class `cls` that ops/conv3x3.py::
+// mma_class picked for it; wpk the phase weights packed for that class.
+inline int launch_styled_conv_up_wgmma(int cls, const void* x, const void* wpk, void* y,
+                                       const float* style, const float* sigma,
+                                       const float* bias, const float* noise, int N, int H,
+                                       int W, int Cin, int Co, cudaStream_t stream) {
+  if (Co % 8 != 0) return (int)cudaErrorInvalidValue;
+  switch (cls) {
+    case 0:
+      return launch_wgmma<true, WgNarrow32, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H,
+                                                    W, Cin, 4 * Co, stream);
+    case 1:
+      return launch_wgmma<true, WgNarrow64, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H,
+                                                    W, Cin, 4 * Co, stream);
+    case 2:
+      return launch_wgmma<true, WgWide, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H, W,
+                                                Cin, 4 * Co, stream);
+    case 3:
+      return launch_wgmma<true, WgMid, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H, W,
+                                               Cin, 4 * Co, stream);
+    case 4:
+      return launch_wgmma<true, WgSmall, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H, W,
+                                                 Cin, 4 * Co, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -45,3 +45,17 @@ extern "C" int tf_styled_conv_fwd(const void* x, const void* w, void* y, const v
     return tf::launch_conv3x3_fwd<float, true>(x, w, y, st, sg, b, nz, N, H, W, Cin, Cout, s);
   return tf::launch_conv3x3_wgmma<true>(cls, x, w, y, st, sg, b, nz, N, H, W, Cin, Cout, s);
 }
+
+// The styled up conv (y (N, 2H, 2W, Cout) from x (N, H, W, Cin)), bf16 only:
+// w the phase weights (3, 3, Cin, 4 Cout) packed for tile class `cls`
+// (ops/styled_conv.py::styled_conv_up_launcher), sigma (N, Cout) of the
+// unfolded weights, bias (Cout), noise (H, W, 4) pre-scaled.
+extern "C" int tf_styled_conv_up_fwd(const void* x, const void* w, void* y, const void* style,
+                                     const void* sigma, const void* bias, const void* noise,
+                                     int N, int H, int W, int Cin, int Cout, int cls,
+                                     void* stream) {
+  return tf::launch_styled_conv_up_wgmma(
+      cls, x, w, y, static_cast<const float*>(style), static_cast<const float*>(sigma),
+      static_cast<const float*>(bias), static_cast<const float*>(noise), N, H, W, Cin, Cout,
+      reinterpret_cast<cudaStream_t>(stream));
+}

@@ -7,9 +7,10 @@ Parameters are ARGUMENTS of the exported program, as in the JAX package:
 the program calls ``torch.func.functional_call`` on a parameter dict, so
 the artifact holds the graph and the weights ship separately
 (``io.params_io.save_pytree``). The styled convs export as the
-``tpufusion::styled_conv`` node (``ops/styled_conv.py``), so a serving
-process must ``import tpufusion_torch.ops`` to register that operator (and,
-on the card, build its kernel); it needs no model-building code. Export on
+``tpufusion::styled_conv`` node and, in bf16, the up convs as the
+``tpufusion::styled_conv_up`` node (``ops/styled_conv.py``), so a serving
+process must ``import tpufusion_torch.ops`` to register those operators
+(and, on the card, build their kernels); it needs no model-building code. Export on
 the device type you serve on: a program traced on ``cuda`` runs on
 ``cuda``.
 """
@@ -57,7 +58,7 @@ def load_program(path: str):
     (each user input's shape and dtype, flattened) and ``.platforms`` (the
     device types the program was traced on) attached. Importing
     ``tpufusion_torch.ops`` first registers its operators."""
-    import tpufusion_torch.ops  # noqa: F401  (registers tpufusion::styled_conv)
+    import tpufusion_torch.ops  # noqa: F401  (registers the tpufusion:: operators)
 
     exported = torch.export.load(path)
     module = exported.module()

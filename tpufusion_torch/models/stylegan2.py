@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from tpufusion_torch.core.dtypes import Policy, default_policy, resolve_device
 from tpufusion_torch.ops.modconv import modulated_conv2d
-from tpufusion_torch.ops.styled_conv import noise_bias_act, styled_conv
+from tpufusion_torch.ops.styled_conv import UP_TAPS, noise_bias_act, styled_conv, styled_conv_up
 from tpufusion_torch.ops.upfirdn2d import make_blur_kernel, upsample_2x
 
 SQRT2 = math.sqrt(2.0)
@@ -348,9 +348,13 @@ class Generator(nn.Module):
         w = layer.conv.hwio()
         ns = layer.noise.weight.reshape(())
         b = layer.activate.bias
-        if not up and not randomize:
-            # the non-upsampling styled conv: the fused kernel on the card
-            return styled_conv(x, w, s, self._noise_plane(noise_idx), ns, b)
+        if not randomize:
+            # the fused kernels on the card: the styled conv, and the up conv
+            # with the blur folded into its weights
+            if not up:
+                return styled_conv(x, w, s, self._noise_plane(noise_idx), ns, b)
+            if self.blur_taps == UP_TAPS:
+                return styled_conv_up(x, w, s, self._noise_plane(noise_idx), ns, b)
         y = modulated_conv2d(x, w, s, demodulate=True, up=up, blur_taps=self.blur_taps)
         if randomize:
             if noise_gen is None:

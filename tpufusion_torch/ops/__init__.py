@@ -3,7 +3,8 @@ hand-written Hopper kernels.
 
 The kernel modules ``styled_conv``, ``conv3x3``, ``pgd_update`` and
 ``adam_update`` each hold a kernel wrapper (``fused_adam`` in
-``adam_update``; the others share their module's name) and its plain twin;
+``adam_update``; the others share their module's name; ``styled_conv``
+also ``styled_conv_up``, the upsampling styled conv) and its plain twin;
 import the wrapper from its module (``from tpufusion_torch.ops.conv3x3
 import conv3x3``). The wrappers' launch counts live in the counter table of
 ``core/trace.py``; the functions below read and set them.

@@ -25,6 +25,18 @@ The TPU dispatcher's even-H/W and H >= 16 limits were artefacts of its row
 tiling; this kernel takes every 3x3 styled conv with Cin % 16 == 0,
 Cout % 32 == 0 and one shared ``(1, H, W, 1)`` noise plane, 4^2 and 8^2
 included. Per-sample noise stays on the composite, as in JAX.
+
+The upsampling styled conv has its own operator, ``tpufusion::styled_conv_up``
+(``styled_conv_up``), with the blur folded into the weights
+(``ops/modconv.py::fold_up_weight``): x (N, H, W, Cin) -> y (N, 2H, 2W,
+Cout) is one "same" 3x3 conv to 4 Cout phase channels at the input plane.
+Its bf16 kernel (``styled_conv_up_wgmma_kernel``, the same wgmma body as the
+styled conv's) modulates the staged input, applies sigma (of the unfolded
+weight), bias, the noise of each output pixel and the activation, and
+stores each phase channel at its depth-to-space place: x read once, y
+written once. Other shapes, per-sample noise and the CPU run the composite
+``styled_conv_up_reference`` (bf16: folded; float32: the unfolded chain,
+``ops/modconv.py``); the backward is autograd of that composite, recomputed.
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ import torch.nn.functional as F
 
 from tpufusion_torch.core import trace
 from tpufusion_torch.ops import _lib, conv3x3
-from tpufusion_torch.ops.modconv import modulated_conv2d
+from tpufusion_torch.ops.modconv import fold_up_weight, modulated_conv2d, modulated_conv2d_up_plain
 
 SQRT2 = math.sqrt(2.0)
 
@@ -79,12 +91,36 @@ def supported(x_shape, w_shape, noise_shape) -> bool:
             and tuple(noise_shape) == (1, h, w, 1))
 
 
-def _check_cuda(x, **others):
+def _check(what, ok, x, weight, style, noise, noise_strength, bias):
+    """Raise on what a styled kernel does not take (``ok``: its shape test),
+    a style, bias or noise strength that does not match x and the weights,
+    a non-contiguous x, then tensors off the card (so that each condition
+    raises on the CPU too)."""
+    if x.dim() != 4 or not ok:
+        raise ValueError(f"{what}: unsupported shapes or dtype x {tuple(x.shape)} {x.dtype}, "
+                         f"w {tuple(weight.shape)}, noise {tuple(noise.shape)}")
+    if (tuple(style.shape) != (x.shape[0], x.shape[3]) or tuple(bias.shape) != (weight.shape[3],)
+            or noise_strength.numel() != 1):
+        raise ValueError(f"{what}: style {tuple(style.shape)} / bias {tuple(bias.shape)} / "
+                         f"noise_strength {tuple(noise_strength.shape)} do not match x and w")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous (N,H,W,C)")
+    _check_cuda(what, x, weight=weight, style=style, noise=noise, noise_strength=noise_strength,
+                bias=bias)
+
+
+def _check_cuda(what, x, **others):
     if not x.is_cuda:
-        raise ValueError(f"styled_conv: x must be a CUDA tensor, got {x.device}")
+        raise ValueError(f"{what}: x must be a CUDA tensor, got {x.device}")
     for name, t in others.items():
         if t.device != x.device:
-            raise ValueError(f"styled_conv: {name} is on {t.device}, x on {x.device}")
+            raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
+
+
+def _scaled_weights_and_sigma(weight, style):
+    """The equalised-lr weights in float32 and sigma (N, Cout) of them."""
+    ws = weight.float() * (1.0 / math.sqrt(9 * weight.shape[2]))
+    return ws, torch.rsqrt(style.float().square() @ ws.square().sum(dim=(0, 1)) + 1e-8)
 
 
 def styled_conv_launcher(x, weight, style, noise, noise_strength, bias):
@@ -95,26 +131,15 @@ def styled_conv_launcher(x, weight, style, noise, noise_strength, bias):
     the pre-scaled noise plane. Every check runs before the library is
     built or loaded. ``styled_conv_kernel`` calls the launch once;
     ``chip_smoke.py`` times it apart from the preparation."""
-    if x.dim() != 4 or not supported(x.shape, weight.shape, noise.shape):
-        raise ValueError(f"styled_conv: unsupported shapes x {tuple(x.shape)}, "
-                         f"w {tuple(weight.shape)}, noise {tuple(noise.shape)}")
+    _check("styled_conv", x.dim() == 4 and supported(x.shape, weight.shape, noise.shape),
+           x, weight, style, noise, noise_strength, bias)
     n, h, w, cin = x.shape
     cout = weight.shape[3]
-    if (tuple(style.shape) != (n, cin) or tuple(bias.shape) != (cout,)
-            or noise_strength.numel() != 1):
-        raise ValueError(f"styled_conv: style {tuple(style.shape)} / bias "
-                         f"{tuple(bias.shape)} / noise_strength "
-                         f"{tuple(noise_strength.shape)} do not match x and w")
-    if not x.is_contiguous():
-        raise ValueError("styled_conv: x must be contiguous (N,H,W,C)")
-    _check_cuda(x, weight=weight, style=style, noise=noise, noise_strength=noise_strength,
-                bias=bias)
     code = _lib.dtype_code(x)
     fn = _lib.load("styled_conv").tf_styled_conv_fwd
     # few device ops here: at the 4^2-32^2 planes the host's time per op,
     # not the kernel, sets the call's time
-    ws = weight.float() * (1.0 / math.sqrt(9 * cin))
-    sigma = torch.rsqrt(style.float().square() @ ws.square().sum(dim=(0, 1)) + 1e-8)
+    ws, sigma = _scaled_weights_and_sigma(weight, style)
     noise2d = (noise_strength.float() * noise.reshape(h, w).float()).contiguous()
     # float32 style (the bf16 kernel rounds it to bf16) and bias
     s32, b = style.float().contiguous(), bias.float().contiguous()
@@ -173,18 +198,22 @@ def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
 
 
-def _styled_conv_backward(ctx, g):
-    """Autograd of the composite, recomputed (JAX's ``_fsc_bwd``)."""
-    need = ctx.needs_input_grad
-    with torch.enable_grad():
-        inputs = [t.detach().requires_grad_(nd) for t, nd in zip(ctx.saved_tensors, need)]
-        y = styled_conv_reference(*inputs)
-        wrt = [t for t, nd in zip(inputs, need) if nd]
-        grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
-    return tuple(next(grads) if nd else None for nd in need)
+def _recomputed_backward(reference):
+    """An operator's backward: autograd of its composite ``reference``,
+    recomputed from the saved inputs (JAX's ``_fsc_bwd``)."""
+    def backward(ctx, g):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(nd) for t, nd in zip(ctx.saved_tensors, need)]
+            y = reference(*inputs)
+            wrt = [t for t, nd in zip(inputs, need) if nd]
+            grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+        return tuple(next(grads) if nd else None for nd in need)
+    return backward
 
 
-styled_conv_op.register_autograd(_styled_conv_backward, setup_context=_setup_context)
+styled_conv_op.register_autograd(_recomputed_backward(styled_conv_reference),
+                                 setup_context=_setup_context)
 
 
 def styled_conv(x, weight, style, noise, noise_strength, bias):
@@ -198,3 +227,110 @@ def styled_conv(x, weight, style, noise, noise_strength, bias):
         # the operator has no implementation there: the launch's checks raise
         return styled_conv_kernel(x.contiguous(), weight, style, noise, noise_strength, bias)
     return styled_conv_op(x, weight, style, noise, noise_strength, bias)
+
+
+# ---- the upsampling styled conv ----------------------------------------------
+# the blur taps the up operator folds (rosinality's); a generator with other
+# taps runs the composite with its own
+UP_TAPS = (1, 3, 3, 1)
+
+
+def styled_conv_up_reference(x, weight, style, noise, noise_strength, bias):
+    """The composite: ``modulated_conv2d(up=True)`` (bf16: folded, one same
+    conv on the phase weights, depth-to-space, demodulation) +
+    ``noise_bias_act`` (also the backward's recompute)."""
+    y = modulated_conv2d(x, weight, style, demodulate=True, up=True, blur_taps=UP_TAPS)
+    return noise_bias_act(y, noise, noise_strength, bias)
+
+
+def styled_conv_up_plain(x, weight, style, noise, noise_strength, bias):
+    """The up conv unfolded, as rosinality runs it (transposed conv, blur,
+    demodulation) + the epilogue: the twin the fold is held against."""
+    y = modulated_conv2d_up_plain(x, weight, style, blur_taps=UP_TAPS)
+    return noise_bias_act(y, noise, noise_strength, bias)
+
+
+def up_supported(x_shape, w_shape, noise_shape, dtype) -> bool:
+    """What the up kernel takes: bf16, 3x3, Cin % 16 == 0, 4 Cout % 32 == 0
+    (the phase conv's Cout) and one shared (1, 2H, 2W, 1) noise plane."""
+    kh, kw, cin, cout = w_shape
+    n, h, w, c = x_shape
+    return (dtype == torch.bfloat16 and (kh, kw) == (3, 3) and cin == c and cin % 16 == 0
+            and (4 * cout) % 32 == 0 and tuple(noise_shape) == (1, 2 * h, 2 * w, 1))
+
+
+def styled_conv_up_launcher(x, weight, style, noise, noise_strength, bias):
+    """As ``styled_conv_launcher``, for the up kernel: checks, then the
+    scaled weights folded into the (3, 3, Cin, 4 Cout) phase weights and
+    packed for the tile class of that conv (``conv3x3.mma_class(n, h, w,
+    cin, 4 cout)``), sigma of the unfolded weights, and the pre-scaled
+    noise plane as (H, W, 4): each input pixel's four output pixels, phase
+    2 a + b at (2 i + a, 2 j + b). Returns ``launch() -> y`` (N, 2H, 2W,
+    Cout)."""
+    _check("styled_conv_up",
+           x.dim() == 4 and up_supported(x.shape, weight.shape, noise.shape, x.dtype),
+           x, weight, style, noise, noise_strength, bias)
+    n, h, w, cin = x.shape
+    cout = weight.shape[3]
+    fn = _lib.load("styled_conv").tf_styled_conv_up_fwd
+    ws, sigma = _scaled_weights_and_sigma(weight, style)
+    w4, _ = fold_up_weight(ws, UP_TAPS)
+    noise4 = (noise_strength.float() * noise.reshape(h, 2, w, 2).float()).permute(0, 2, 1, 3)
+    noise4 = noise4.contiguous()
+    x, s32, b = (_lib.aligned16(t) for t in (x, style.float().contiguous(),
+                                             bias.float().contiguous()))
+    picked = conv3x3.mma_class(n, h, w, cin, 4 * cout)
+    w_k = conv3x3.pack_mma_weights(w4, picked, x.dtype)
+    bufs = (x, w_k, s32, sigma.contiguous(), b, noise4)
+    x_p, w_p, *rest = (t.data_ptr() for t in bufs)
+
+    def launch():
+        y = torch.empty((n, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)
+        _lib.launch(fn, x, "styled_conv_up", x_p, w_p, y.data_ptr(), *rest,
+                    n, h, w, cin, cout, picked.code)
+        return y
+    launch.buffers = bufs
+    return launch
+
+
+def styled_conv_up_kernel(x, weight, style, noise, noise_strength, bias):
+    """Launch the fused up kernel once (``styled_conv_up_launcher``)."""
+    return styled_conv_up_launcher(x, weight, style, noise, noise_strength, bias)()
+
+
+@torch.library.custom_op("tpufusion::styled_conv_up", mutates_args=(), device_types="cuda")
+def styled_conv_up_op(x: torch.Tensor, weight: torch.Tensor, style: torch.Tensor,
+                      noise: torch.Tensor, noise_strength: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """The fused up kernel on CUDA tensors (one launch, counted)."""
+    y = styled_conv_up_kernel(x.contiguous(), weight, style, noise, noise_strength, bias)
+    trace.count("styled_conv_up")
+    return y
+
+
+@styled_conv_up_op.register_kernel("cpu")
+def _styled_conv_up_cpu(x, weight, style, noise, noise_strength, bias):
+    return styled_conv_up_reference(x, weight, style, noise, noise_strength, bias)
+
+
+@styled_conv_up_op.register_fake
+def _styled_conv_up_fake(x, weight, style, noise, noise_strength, bias):
+    n, h, w, _ = x.shape
+    return x.new_empty((n, 2 * h, 2 * w, weight.shape[3]))
+
+
+styled_conv_up_op.register_autograd(_recomputed_backward(styled_conv_up_reference),
+                                    setup_context=_setup_context)
+
+
+def styled_conv_up(x, weight, style, noise, noise_strength, bias):
+    """Upsampling styled conv (taps ``UP_TAPS``). What the kernel does not
+    take (``up_supported``: float32, per-sample noise, other shapes) runs
+    the composite; the rest goes through ``tpufusion::styled_conv_up``,
+    which launches the kernel on CUDA tensors (or raises) and runs the
+    composite on CPU tensors."""
+    if not up_supported(x.shape, weight.shape, noise.shape, x.dtype):
+        return styled_conv_up_reference(x, weight, style, noise, noise_strength, bias)
+    if x.device.type not in ("cpu", "cuda"):
+        return styled_conv_up_kernel(x.contiguous(), weight, style, noise, noise_strength, bias)
+    return styled_conv_up_op(x, weight, style, noise, noise_strength, bias)

@@ -35,11 +35,14 @@ _DEVICE_KERNELS: dict = {}
 def blur_kernel(taps, gain: float, device) -> torch.Tensor:
     """``make_blur_kernel`` on ``device``, built once per (taps, gain,
     device) and shared: callers only read it. A forward captured in a CUDA
-    graph (``core/graphs.py``) then copies nothing from the host."""
+    graph (``core/graphs.py``) then copies nothing from the host. Only a
+    plain tensor is kept: one made while ``torch.export`` traces is a fake."""
     key = (tuple(taps), float(gain), torch.device(device))
     k = _DEVICE_KERNELS.get(key)
     if k is None:
-        k = _DEVICE_KERNELS[key] = make_blur_kernel(taps, gain, device)
+        k = make_blur_kernel(taps, gain, device)
+        if type(k) is torch.Tensor:
+            _DEVICE_KERNELS[key] = k
     return k
 
 
