@@ -28,7 +28,9 @@ def group_flops(config: dict, mix: dict) -> float:
     n, size = int(config["n_inputs"]), int(config["generator"]["size"])
     group = Group(images=torch.zeros(n, size, size, 3, device="meta"),
                   target=torch.zeros(1, size, size, 3, device="meta"),
-                  pool_factor=max(size // int(config["encoder"]["input_size"]), 1))
+                  pool_factor=max(size // int(config["encoder"]["input_size"]), 1),
+                  latent_avg=torch.zeros(1, int(config["generator"]["style_dim"]),
+                                         device="meta"))
     once, step = attacks.load(mix["attack"]).flop_parts(models, mix, group)
     counts = []
     for fn in (once, step):

@@ -14,14 +14,16 @@ A run:
    pipeline built from them, and one short group of the cell's shapes
    (the mix's ``warmup`` settings) run through the program;
 2. the window: groups one after another, closed loop, each on fresh inputs
-   (``traffic.py``) through ``program.dispatch`` and synchronised; it closes
+   (``traffic.py``) through ``program.dispatch`` and synchronised, the
+   device's peak memory read after its first ``PEAK_GROUPS``; it closes
    at the end of the group during which ``--seconds`` passed (with
    ``--trace 1``: after the mix's ``trace_groups`` groups, or at
    ``--seconds`` if sooner, all of them under the profiler);
-3. the device's peak memory of the window, and a check that no module of
-   JAX or of the JAX package is loaded;
+3. where the mix asks for them (``short_groups``), more groups through
+   the program for their first steps; a check that no module of JAX or of
+   the JAX package is loaded;
 4. the program freed, the reference runs the groups drawn for the check
-   from their inputs and compares (``check``);
+   and the short groups from their inputs and compares (``check``);
 5. one JSON line on stdout: the end-to-end metrics (``--trace 0``) or the
    per-layer ones (``--trace 1``).
 """
@@ -115,27 +117,39 @@ def build_program(config, seed, device):
     return program.build_pipeline(config, state, mean, device)
 
 
-def reference_group(config, mix, seed, index, device):
-    """Group ``index``'s inputs as the reference gets them."""
-    from portbench import traffic
+def reference_group(config, mix, seed, index, device, models):
+    """Group ``index``'s inputs as the reference gets them: the draws of
+    ``run_window``'s (the images, the target and the attack's generator),
+    and the mean latent of ``build_program``'s, from the float32 reference
+    ``models``."""
+    from portbench import traffic, weights
     from portbench.reference.attacks import Group
 
     n, size = int(config["n_inputs"]), int(config["generator"]["size"])
-    images, target, _ = traffic.group_inputs(seed, index, n, size, mix["images"], device)
-    return Group(images, target, max(size // int(config["encoder"]["input_size"]), 1))
+    images, target, gen = traffic.group_inputs(seed, index, n, size, mix["images"], device)
+    mean = weights.mean_latent(models["generator"], seed, int(config["mean_latent_samples"]))
+    return Group(images, target, max(size // int(config["encoder"]["input_size"]), 1), gen,
+                 mean)
+
+
+PEAK_GROUPS = 3  # the groups over which ``peak_mem_gib`` is read
 
 
 def run_window(torch, pipeline, config, mix, seed, seconds, trace, device, cfg, keep):
     """The measured groups: ``(groups [(start, end)], window_s, kept
-    outputs {index: host tensor}, trace or None)``; ``keep`` maps the
-    indices of the groups to keep to host buffers of the answer's shape."""
+    outputs {index: host tensor}, trace or None, peak)``; ``keep`` maps the
+    indices of the groups to keep to host buffers of the answer's shape.
+    ``peak`` is the device's peak allocation over the window's first
+    ``PEAK_GROUPS`` groups (all of them, where it holds fewer): a fixed
+    amount of work, so that it does not follow how many groups a window
+    holds (the program leaves memory behind a group, PERF.md section 2)."""
     from portbench import program, traffic
     from portbench import trace as tracing
 
     n, size = int(config["n_inputs"]), int(config["generator"]["size"])
     limit_groups = int(mix["trace_groups"]) if trace else math.inf
     prof = tracing.start() if trace else None
-    groups, kept = [], {}
+    groups, kept, peak = [], {}, None
     t0 = time.perf_counter()
     i = 0
     while True:
@@ -151,12 +165,18 @@ def run_window(torch, pipeline, config, mix, seed, seconds, trace, device, cfg, 
             kept[i] = keep[i].copy_(adv.detach(), non_blocking=True)
         del adv, images, target, gen
         i += 1
+        if i == PEAK_GROUPS:
+            peak = _peak(torch, device)
         if e - t0 >= seconds or i >= limit_groups:
             break
     window_s = groups[-1][1] - t0
     _sync(torch, device)
     parsed = tracing.stop(prof) if trace else None
-    return groups, window_s, kept, parsed
+    return groups, window_s, kept, parsed, _peak(torch, device) if peak is None else peak
+
+
+def _peak(torch, device) -> int:
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
 
 
 def judge(nums: dict, limits: dict) -> bool:
@@ -166,9 +186,57 @@ def judge(nums: dict, limits: dict) -> bool:
                for k, lim in limits.items())
 
 
+def short_groups(mix) -> dict:
+    """``{index: name}`` of the short groups compared besides the window's:
+    where a group's answer after all its steps cannot be followed step by
+    step (an attack whose steps part any two runs that round differently),
+    the mix's ``check.short`` names more groups of the same sizes through
+    the same call, each with the runner's and the reference's settings for
+    its first steps, run once the window has closed. Their numbers carry
+    the group's name as a prefix (``first_step.sign_gap``)."""
+    from portbench import traffic
+
+    return {traffic.SHORT_GROUP - k: name
+            for k, name in enumerate(mix["check"].get("short", {}))}
+
+
+def group_mix(mix, index):
+    """The mix as group ``index`` ran it: a short group with its runner's
+    and reference's settings."""
+    name = short_groups(mix).get(index)
+    if name is None:
+        return mix
+    short = mix["check"]["short"][name]
+    return {**mix, "run_config": {**mix["run_config"], **short["run_config"]},
+            "reference": {**mix["reference"], **short["reference"]}}
+
+
+def named(mix, index, nums: dict) -> dict:
+    """Group ``index``'s numbers under the names the limits give them."""
+    name = short_groups(mix).get(index)
+    return nums if name is None else {f"{name}.{k}": v for k, v in nums.items()}
+
+
+def short_answers(pipeline, config, mix, seed, device) -> dict:
+    """The program's answers for the short groups, ``{index: host
+    tensor}``."""
+    from portbench import program, traffic
+
+    n, size = int(config["n_inputs"]), int(config["generator"]["size"])
+    out = {}
+    for index in short_groups(mix):
+        gmix = group_mix(mix, index)
+        images, target, gen = traffic.group_inputs(seed, index, n, size, mix["images"], device)
+        cfg = program.run_config(config, mix["attack"], gmix["run_config"])
+        out[index] = program.dispatch(pipeline, mix["attack"], images, target, cfg,
+                                      gen).detach().cpu()
+    return out
+
+
 def check(torch, config, mix, limits, seed, kept, device) -> dict:
     """The reference's run of each kept group, compared: ``{number: (worst
-    value, limit)}`` and the count of groups that broke a limit."""
+    value, limit)}`` and the count of groups that broke a limit (each held
+    to the limits of the numbers it gives)."""
     from portbench import weights
     from portbench.reference import attacks
     from portbench.reference.numerics import Numerics, no_tf32
@@ -179,12 +247,13 @@ def check(torch, config, mix, limits, seed, kept, device) -> dict:
         mod = attacks.load(mix["attack"])
         worst, failed = {}, 0
         for i, adv in sorted(kept.items()):
-            group = reference_group(config, mix, seed, i, device)
-            followed = mod.follow(models, mix, group)
-            nums = mod.numbers(models, mix, group, adv.to(device), followed)
+            gmix = group_mix(mix, i)
+            group = reference_group(config, gmix, seed, i, device, models)
+            followed = mod.follow(models, gmix, group)
+            nums = named(mix, i, mod.numbers(models, gmix, group, adv.to(device), followed))
             for k, v in nums.items():
                 worst[k] = max(worst.get(k, -math.inf), v)
-            failed += not judge(nums, limits)
+            failed += not judge(nums, {k: v for k, v in limits.items() if k in nums})
             print(f"portbench: group {i}: " + " ".join(f"{k} {v!r}" for k, v in nums.items()),
                   file=sys.stderr, flush=True)
         return worst, failed
@@ -242,9 +311,10 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *, device="
         print(f"portbench: set-up {what} {t - last:.3f} s", file=sys.stderr)
         last = t
 
-    groups, window_s, kept, parsed = run_window(torch, pipeline, config, mix, seed, seconds,
-                                                trace, device, cfg, keep)
-    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    groups, window_s, kept, parsed, peak_groups = run_window(
+        torch, pipeline, config, mix, seed, seconds, trace, device, cfg, keep)
+    peak = _peak(torch, device)
+    kept.update(short_answers(pipeline, config, mix, seed, device))
     banned = banned_modules()
     if banned:
         print(f"portbench: modules loaded that must not be: {banned}", file=sys.stderr)
@@ -283,7 +353,7 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool, *, device="
         result["breakdown"] = tracing.breakdown(parsed)
     else:
         e2e = dict(attack_step_ms=1e3 * window_s / (len(groups) * steps),
-                   peak_mem_gib=peak / 2 ** 30, setup_s=setup_s)
+                   peak_mem_gib=peak_groups / 2 ** 30, setup_s=setup_s)
         result["metrics"] = {m["name"]: dict(value=e2e[m["name"]], unit=m["unit"])
                              for m in spec["end_to_end"] if applies(m, cell_name)}
         result["device"] = dict(platform="gpu" if on_card else "cpu",

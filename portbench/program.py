@@ -30,10 +30,12 @@ def load_kernels() -> float:
 def build_pipeline(config: dict, state: dict, mean_latent: torch.Tensor, device):
     """The program's pipeline holding ``state``'s tensors (on ``device``)
     as its weights, every weight frozen, computing in the config's
-    ``compute_dtype``."""
+    ``compute_dtype``; its drawer holds StyleFusion's fusion nets where the
+    config has a ``fusion_nets`` block, and none otherwise."""
     from tpufusion_torch.core.dtypes import Policy
     from tpufusion_torch.fusion.drawer import FusionDrawer
     from tpufusion_torch.models.e4e import Encoder4Editing
+    from tpufusion_torch.models.fusion_hierarchy import HierarchyBlender
     from tpufusion_torch.models.stylegan2 import Generator
     from tpufusion_torch.models.vgg16 import VGG16
     from tpufusion_torch.pipeline import FusionPipeline
@@ -51,7 +53,16 @@ def build_pipeline(config: dict, state: dict, mean_latent: torch.Tensor, device)
     for module, name in ((gen, "generator"), (enc, "encoder"), (vgg, "vgg16")):
         module.load_state_dict(state[name], assign=True)
         module.requires_grad_(False)
-    drawer = FusionDrawer(config["dataset"], gen, mean_latent.to(device))
+    blender = None
+    if "fusion_nets" in config:
+        # built on the device, as the port builds it, its own draws (from a
+        # generator of its own) then overwritten by the state's
+        blender = HierarchyBlender(config["dataset"], gen.style_input_dims(),
+                                   hidden=int(config["fusion_nets"]["hidden"]), device=device,
+                                   generator=torch.Generator(device=device).manual_seed(0))
+        blender.load_state_dict(state["fusion_nets"])
+        blender.requires_grad_(False)
+    drawer = FusionDrawer(config["dataset"], gen, mean_latent.to(device), blender)
     return FusionPipeline(dataset=config["dataset"], drawer=drawer, encoder=enc, vgg=vgg,
                           latent_avg=drawer.mean_latent.repeat(e["n_styles"], 1),
                           policy=policy, encoder_input_size=e["input_size"])

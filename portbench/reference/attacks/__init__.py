@@ -30,11 +30,23 @@ import torch
 
 @dataclasses.dataclass
 class Group:
-    """One group's inputs, NHWC float32 as the program gets them."""
+    """One group's inputs, NHWC float32 as the program gets them: the
+    images, the target, the generator that the runner hands the attack for
+    what it draws (in the state the program gets it), and the mean latent
+    that the program's pipeline holds."""
 
     images: torch.Tensor  # (N, S, S, 3)
     target: torch.Tensor  # (1, S, S, 3)
     pool_factor: int
+    generator: torch.Generator = None
+    latent_avg: torch.Tensor = None  # (1, style_dim)
+
+    def draws(self) -> torch.Generator:
+        """A generator in the state of ``generator``: what the attack draws
+        from it, drawn again as often as a reference needs."""
+        gen = torch.Generator(device=self.generator.device)
+        gen.set_state(self.generator.get_state())
+        return gen
 
 
 def load(attack: str):

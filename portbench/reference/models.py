@@ -117,8 +117,12 @@ class ModulatedConv2d(nn.Module):
         self.nx = nx
 
     def forward(self, x, w_row):
+        return self.modulated(x, self.modulation(w_row))
+
+    def modulated(self, x, style):
+        """The convolution of ``x`` under the style vector ``style`` (b,
+        cin): the layer from its style on."""
         b = x.shape[0]
-        style = self.modulation(w_row)  # (b, cin)
         weight = self.scale * self.weight[0]  # (cout, cin, k, k)
         x = x * style.view(b, self.cin, 1, 1)
         if self.upsample:
@@ -155,7 +159,10 @@ class StyledConv(nn.Module):
         self.activate = FusedLeakyReLU(cout)
 
     def forward(self, x, w_row, noise):
-        return self.activate(self.conv(x, w_row) + self.noise.weight * noise)
+        return self.styled(x, self.conv.modulation(w_row), noise)
+
+    def styled(self, x, style, noise):
+        return self.activate(self.conv.modulated(x, style) + self.noise.weight * noise)
 
 
 class ToRGB(nn.Module):
@@ -167,7 +174,10 @@ class ToRGB(nn.Module):
         self.bias = nn.Parameter(torch.zeros(1, 3, 1, 1))
 
     def forward(self, x, w_row, skip=None):
-        out = self.conv(x, w_row) + self.bias
+        return self.styled(x, self.conv.modulation(w_row), skip)
+
+    def styled(self, x, style, skip=None):
+        out = self.conv.modulated(x, style) + self.bias
         return out if skip is None else out + self.upsample(skip)
 
 
@@ -184,8 +194,8 @@ def channel_map(channel_multiplier=2):
 
 
 class Generator(nn.Module):
-    """Synthesis from W+ codes (``input_is_latent``) and the mapping
-    network (``style``), with rosinality's parameter names."""
+    """Synthesis from W+ codes (``input_is_latent``) or from style vectors,
+    and the mapping network (``style``), with rosinality's parameter names."""
 
     def __init__(self, size, style_dim=512, n_mlp=8, channel_multiplier=2,
                  nx: Numerics = FLOAT32):
@@ -214,19 +224,43 @@ class Generator(nn.Module):
             self.to_rgbs.append(ToRGB(cout, style_dim, nx))
             cin = cout
 
+    def modulated_convs(self):
+        """``(conv, W+ row)`` of each modulated convolution, in the order of
+        the style vectors (S space): conv1, to_rgb1, then each level's up
+        conv, conv and to_rgb."""
+        out = [(self.conv1.conv, 0), (self.to_rgb1.conv, 1)]
+        for j, to_rgb in enumerate(self.to_rgbs):
+            i = 1 + 2 * j
+            out += [(self.convs[2 * j].conv, i), (self.convs[2 * j + 1].conv, i + 1),
+                    (to_rgb.conv, i + 2)]
+        return out
+
+    def style_input_dims(self):
+        """The width of each style vector (its convolution's input channels)."""
+        return [conv.cin for conv, _ in self.modulated_convs()]
+
+    def styles(self, latent):
+        """(N, n_latent, style_dim) W+ codes -> the style vectors, one
+        (N, cin) a modulated convolution."""
+        return tuple(conv.modulation(latent[:, row]) for conv, row in self.modulated_convs())
+
     def forward(self, latent):
         """(N, n_latent, style_dim) W+ codes -> (N, 3, size, size) image."""
+        return self.synthesis(self.styles(latent))
+
+    def synthesis(self, styles):
+        """Style vectors (``styles``' order) -> (N, 3, size, size) image."""
         noise = [getattr(self.noises, f"noise_{i}") for i in range(self.num_layers)]
-        out = self.input.input.repeat(latent.shape[0], 1, 1, 1)
-        out = self.conv1(out, latent[:, 0], noise[0])
-        skip = self.to_rgb1(out, latent[:, 1])
-        i = 1
+        out = self.input.input.repeat(styles[0].shape[0], 1, 1, 1)
+        out = self.conv1.styled(out, styles[0], noise[0])
+        skip = self.to_rgb1.styled(out, styles[1])
+        s = 2
         for conv_up, conv, n1, n2, to_rgb in zip(self.convs[::2], self.convs[1::2],
                                                  noise[1::2], noise[2::2], self.to_rgbs):
-            out = conv_up(out, latent[:, i], n1)
-            out = conv(out, latent[:, i + 1], n2)
-            skip = to_rgb(out, latent[:, i + 2], skip)
-            i += 2
+            out = conv_up.styled(out, styles[s], n1)
+            out = conv.styled(out, styles[s + 1], n2)
+            skip = to_rgb.styled(out, styles[s + 2], skip)
+            s += 3
         return skip
 
 

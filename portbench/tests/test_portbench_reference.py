@@ -2,11 +2,16 @@
 
 The benchmark's state dicts load into the reference models and, with
 ``load_state_dict``, into the port's (whose CPU path is its plain twins);
-both compute in float32 and must agree to float32 rounding. Then each cell
-runs end to end through the harness at the small sizes: the port's answer
-and the reference's agree, so every compared number reads ~0.
+both compute in float32 and must agree to float32 rounding: the generator
+from W+ and from style vectors, the encoder, VGG16's taps and StyleFusion's
+fusion nets. Then each cell runs end to end through the harness at the
+small sizes: the port's answer and the reference's agree, so every compared
+number reads ~0. The models' weights, a group's inputs and the reference's
+white-box answer are the ones the harness drew before the fusion nets and
+the attack's generator were added to it (hashes pinned from that tree).
 """
 
+import hashlib
 import math
 
 import pytest
@@ -67,6 +72,126 @@ def test_weights_follow_the_seed():
                            c["encoder"]["body.0.res_layer.1.weight"])
 
 
+def _sha(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+# from the tree before: make_state's leaves in state-dict order, group 0's
+# images and target, 64 draws of its generator, and the reference's
+# white-box answer in 2 steps on one thread (seed 2**31 + 11, 32^2)
+PINNED = {"generator": "a86a0fe223ac5cac", "encoder": "2a08c08eee81069f",
+          "vgg16": "13559aeadece8e95", "inputs": "bbf89dae266f6938",
+          "draws": "a48081473bb7939c", "answer": "b0159b101698b03f"}
+FUSION_NETS = {"architecture": "StyleFusion hierarchy (arXiv:2107.06996)", "hidden": 16}
+
+
+def _small(cell, steps=2):
+    ov = tiny.overrides(cell, steps=steps)
+    _, _, config, mix, _ = harness.load_cell(cell)
+    return {**config, **ov["config"]}, {**mix, **ov["mix"]}
+
+
+def test_draws_are_the_ones_before_the_fusion_nets():
+    from portbench import traffic
+    from portbench.reference import attacks
+
+    seed = 2 ** 31 + 11
+    config, mix = _small("ffhq1024.whitebox")
+    state = weights.make_state(config, seed, "cpu")
+    with_nets = weights.make_state({**config, "fusion_nets": FUSION_NETS}, seed, "cpu")
+    assert set(with_nets) == set(state) | {"fusion_nets"}
+    for model, sd in state.items():
+        assert _sha(*sd.values()) == PINNED[model], model
+        assert all(torch.equal(t, with_nets[model][k]) for k, t in sd.items()), model
+    images, target, gen = traffic.group_inputs(seed, 0, 2, 32, mix["images"], "cpu")
+    assert _sha(images, target) == PINNED["inputs"]
+    assert _sha(torch.rand(64, generator=gen)) == PINNED["draws"]
+    models = weights.reference_models(config, state)
+    group = harness.reference_group(config, mix, seed, 0, "cpu", models)
+    assert torch.equal(group.images, images) and torch.equal(group.target, target)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        adv = attacks.load(mix["attack"]).answer(models, mix, group)
+    finally:
+        torch.set_num_threads(threads)
+    assert _sha(adv) == PINNED["answer"]
+
+
+def test_group_draws_again_what_the_program_draws():
+    """``Group.draws`` gives the generator's draws, as often as asked, and
+    leaves the generator where it was."""
+    from portbench import traffic
+
+    config, mix = _small("ffhq1024.fusion_pgd_arith")
+    models = weights.reference_models(config, weights.make_state(config, 3, "cpu"))
+    group = harness.reference_group(config, mix, 3, 1, "cpu", models)
+    gen = traffic.group_inputs(3, 1, 2, 32, mix["images"], "cpu")[2]
+    first = torch.rand(group.images.shape, generator=group.draws())
+    assert torch.equal(first, torch.rand(group.images.shape, generator=group.draws()))
+    assert torch.equal(first, torch.rand(group.images.shape, generator=gen))
+    assert torch.equal(first, torch.rand(group.images.shape, generator=group.generator))
+    assert group.latent_avg.shape == (1, 128)
+
+
+@pytest.fixture(scope="module")
+def fusion_pair():
+    """The port's pipeline and the reference models of a 32^2 config with a
+    ``fusion_nets`` block, on one state dict."""
+    config = {**harness.load_cell("ffhq1024.whitebox")[2], **tiny.CONFIG,
+              "fusion_nets": FUSION_NETS}
+    pipe = harness.build_program(config, 11, "cpu")
+    models = weights.reference_models(config, weights.make_state(config, 11, "cpu"))
+    return config, pipe, models
+
+
+def _styles(dims, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(1.0 + 0.5 * torch.randn(n, d, generator=g) for d in dims)
+
+
+def test_fusion_nets_match(fusion_pair):
+    _, pipe, models = fusion_pair
+    blender = pipe.drawer.blender
+    dims = models["generator"].style_input_dims()
+    assert list(blender.style_dims) == dims
+    assert set(blender.state_dict()) == set(models["fusion_nets"].state_dict())
+    s_dict = {part: _styles(dims, 2, k) for k, part in enumerate(pipe.drawer.parts)}
+    with torch.no_grad():
+        port, mine = blender(s_dict), models["fusion_nets"](s_dict)
+    assert len(port) == len(mine) == len(dims)
+    for a, b in zip(port, mine):
+        _close(a, b, 1e-5)
+    # the gates are live: no layer's blend is one child alone
+    left = models["fusion_nets"](s_dict, "face")
+    assert all(not torch.allclose(a, b) for a, b in zip(mine, left))
+
+
+def test_generator_from_style_vectors_matches(fusion_pair):
+    _, pipe, models = fusion_pair
+    gen = models["generator"]
+    styles = _styles(gen.style_input_dims(), 2, 99)
+    with torch.no_grad():
+        mine = gen.synthesis(styles)
+        port = pipe.drawer.generator(style_vector=styles).image.permute(0, 3, 1, 2)
+        w = torch.randn(2, gen.n_latent, 128, generator=torch.Generator().manual_seed(4))
+        assert torch.equal(gen(w), gen.synthesis(gen.styles(w)))
+    _close(port, mine, 1e-5)
+
+
+def test_a_config_with_fusion_nets_counts_its_operations(fusion_pair):
+    from portbench import flops
+
+    config, _, _ = fusion_pair
+    mix = harness.load_cell("ffhq1024.fusion_pgd_arith")[3]
+    with_nets = flops.group_flops(config, mix)
+    assert with_nets == flops.group_flops({k: v for k, v in config.items()
+                                           if k != "fusion_nets"}, mix) > 0
+
+
 def test_modulated_conv_is_the_published_one():
     """The unfused form equals the grouped convolution of the published
     code (weights modulated and demodulated per sample)."""
@@ -111,6 +236,6 @@ def test_reference_answer_is_the_ports(mix_name):
     adv = program.dispatch(pipe, mix["attack"], images, target,
                            program.run_config(config, mix["attack"], mix["run_config"]), gen)
     models = weights.reference_models(config, weights.make_state(config, seed, "cpu"))
-    mine = attacks.load(mix["attack"]).answer(models, mix,
-                                              harness.reference_group(config, mix, seed, 0, "cpu"))
+    group = harness.reference_group(config, mix, seed, 0, "cpu", models)
+    mine = attacks.load(mix["attack"]).answer(models, mix, group)
     assert (adv.permute(0, 3, 1, 2) - mine).abs().max().item() <= 1e-5

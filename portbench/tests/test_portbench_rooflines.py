@@ -1,8 +1,9 @@
 """The yardstick's arithmetic: kernel bounds, operation counts, shares.
 
 - The copied roofline arithmetic gives PERF.md's bounds: styled_conv over
-  the nine planes of the white-box synthesis (batch 5) 0.6272 ms,
-  ``fused_adam`` at 5 x 1024^2 x 3 0.1315 ms.
+  the nine planes of the white-box synthesis (batch 5) 0.6272 ms and of the
+  PGD synthesis (batch 1) 0.1281 ms, ``fused_adam`` at 5 x 1024^2 x 3
+  0.1315 ms, ``pgd_update`` at 5 x 1024^2 x 3 0.0751 ms.
 - The operation count on ``meta`` matches a count by hand for one styled
   conv and one IR-SE unit.
 - A share cannot pass 100% while each launch takes at least its bound.
@@ -29,10 +30,20 @@ def test_styled_conv_bound_is_the_kernel_tables():
     assert sum(cycle) * 1e3 == pytest.approx(0.6272, abs=5e-5)
 
 
+def test_styled_conv_bound_at_batch_one_is_the_kernel_tables():
+    # PERF.md's row "PGD: 9 planes, batch 1"
+    cycle = rooflines.load("styled_conv").cycle_bounds(_config(), {"batch": 1})
+    assert len(cycle) == 9
+    assert sum(cycle) * 1e3 == pytest.approx(0.1281, abs=5e-5)
+
+
 def test_pixel_update_bounds_are_the_kernel_tables():
     cfg = _config()
     adam = rooflines.load("fused_adam").cycle_bounds(cfg, {"images": "n_inputs"})
     assert adam == [pytest.approx(0.1315e-3, abs=5e-8)]
+    # PERF.md's row 4, "spatial: 5 x 1024^2 x 3"
+    pgd = rooflines.load("pgd_update").cycle_bounds(cfg, {"images": "n_inputs"})
+    assert pgd == [pytest.approx(0.0751e-3, abs=5e-8)]
 
 
 def test_car_planes():
@@ -75,17 +86,20 @@ def test_flops_of_one_ir_se_unit_by_hand():
     assert got == c1 + c2 + short + se
 
 
-@pytest.mark.parametrize("cell", ["ffhq1024.whitebox", "car512.whitebox"])
+@pytest.mark.parametrize("cell", ["ffhq1024.whitebox", "car512.whitebox",
+                                  "ffhq1024.fusion_pgd_arith"])
 def test_group_flops_of_the_cells(cell):
     """``step_mfu``'s count of one group on ``meta`` at the cell's size:
-    the issue's estimate of some 3.5 TFLOP a white-box iteration on FFHQ
-    (e4e, synthesis and VGG16, forwards and input gradients), less at
-    512^2 and N = 4."""
+    some 3.5 TFLOP a white-box iteration on FFHQ (e4e, synthesis and
+    VGG16, forwards and input gradients), less at 512^2 and N = 4; a fusion
+    PGD step has the white-box step's e4e over the N images but one
+    synthesis at batch 1 and no VGG16, about half."""
     from portbench import flops
 
     _, _, config, mix, _ = harness.load_cell(cell)
     per_step = flops.group_flops(config, mix) / int(mix["steps"])
-    lo, hi = (2.5e12, 5e12) if cell.startswith("ffhq") else (1e12, 3.5e12)
+    lo, hi = {"ffhq1024.whitebox": (2.5e12, 5e12), "car512.whitebox": (1e12, 3.5e12),
+              "ffhq1024.fusion_pgd_arith": (1.2e12, 2.4e12)}[cell]
     assert lo <= per_step <= hi, per_step
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from portbench.weights import mix
 
 WARMUP_GROUP = -1  # the index of the set-up's group
+SHORT_GROUP = -2  # the index of a mix's first short group (``check.short``); the k-th is -2 - k
 
 
 def group_inputs(seed: int, index: int, n: int, size: int, mix_params: dict, device):

@@ -12,10 +12,10 @@ The scales follow each architecture's own initialisation where it has one
 (StyleGAN2's equalised learning rate stores unit-normal weights, the mapping
 layers' divided by their lr multiplier; the style modulations start at bias
 1), and otherwise keep activations of order one (LeCun normal for e4e's
-convolutions, He normal for VGG16's ReLU stack). Biases, noise strengths,
-BatchNorm statistics and PReLU slopes get small random values around their
-usual starting points, so that every parameter takes part, as in a trained
-checkpoint.
+convolutions and the fusion nets' gates, He normal for VGG16's ReLU
+stack). Biases, noise strengths, BatchNorm statistics and PReLU slopes get
+small random values around their usual starting points, so that every
+parameter takes part, as in a trained checkpoint.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from portbench.reference import fusion_nets
 from portbench.reference import models as ref
 
 
@@ -50,6 +51,11 @@ def _init(model: str, name: str, shape, names) -> tuple:
     if last == "running_var":
         return ("lognormal", 0.2)
     is_bn = f"{prefix}.running_mean" in names
+    if model == "fusion_nets":
+        # LeCun normal, the program's own ``Dense`` initialisation: the gates'
+        # pre-activations of order one, in the sigmoid's live range as a
+        # trained checkpoint's are (a unit normal would saturate every gate)
+        return (0.1, 0.0) if last == "bias" else (math.sqrt(1.0 / shape[1]), 0.0)
     if model == "generator":
         if name.startswith("style.") and last == "weight":
             return (100.0, 0.0)  # EqualLinear stores weight / lr_mul (0.01)
@@ -75,11 +81,13 @@ def _init(model: str, name: str, shape, names) -> tuple:
 
 def reference_modules(config: dict, nx=None, device="meta") -> dict:
     """The reference models of ``config`` with empty leaves on ``device``
-    (``meta`` by default: shapes only)."""
+    (``meta`` by default: shapes only): the generator, the encoder, VGG16's
+    taps and, where the config has a ``fusion_nets`` block, StyleFusion's
+    fusion nets of its dataset's tree, in that order."""
     g, e = config["generator"], config["encoder"]
     kw = {} if nx is None else dict(nx=nx)
     with torch.device(device):
-        return {
+        mods = {
             "generator": ref.Generator(g["size"], g["style_dim"], g["n_mlp"],
                                        g["channel_multiplier"], **kw),
             "encoder": ref.Encoder4Editing(e["n_styles"], g["style_dim"], e["base_channels"],
@@ -87,11 +95,18 @@ def reference_modules(config: dict, nx=None, device="meta") -> dict:
                                            e["coarse_ind"], e["middle_ind"], **kw),
             "vgg16": ref.VGG16Taps(**kw),
         }
+        if "fusion_nets" in config:
+            mods["fusion_nets"] = fusion_nets.HierarchyBlender(
+                config["dataset"], mods["generator"].style_input_dims(),
+                int(config["fusion_nets"]["hidden"]), **kw)
+        return mods
 
 
 def make_state(config: dict, seed: int, device) -> dict:
-    """``{"generator": sd, "encoder": sd, "vgg16": sd}``: every leaf of the
-    config's models, from ``seed``, on ``device``."""
+    """``{model: state dict}`` of ``reference_modules``: every leaf of the
+    config's models, from ``seed``, on ``device``. Each model draws from its
+    own stream, by its place in that order, so a model added at the end
+    leaves the others' leaves as they were."""
     out = {}
     for k, (model, module) in enumerate(reference_modules(config).items()):
         shapes = {n: tuple(t.shape) for n, t in module.state_dict().items()}
