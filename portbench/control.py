@@ -13,9 +13,9 @@ reference runs once more in place of the program, its products in float8
 (``reference/numerics.py``, the step below the port's bfloat16), and the
 same numbers are read between it and the float32 reference (the control's
 readings, the upper end). For a fault seed the program runs the same
-groups again with each named fault of ``tests/test_portbench_faults.py``
-planted in it (``fault.<name>``: the readings a fault gives). One JSON line
-a seed, to stdout and to ``--out``.
+groups again with each named fault of the cell's attack
+(``tests/faults/<attack>.py``) planted in it (``fault.<name>``: the
+readings a fault gives). One JSON line a seed, to stdout and to ``--out``.
 """
 
 from __future__ import annotations
@@ -80,10 +80,10 @@ def readings(cell: str, seed: int, *, run_program: bool, run_control: bool, faul
         for name in faults:
             import pytest
 
-            from portbench.tests.test_portbench_faults import FAULTS
+            from portbench.tests import faults as planted
 
             with pytest.MonkeyPatch.context() as mp:
-                FAULTS[mix["attack"]][name](mp)
+                planted.load(mix["attack"])[name](mp)
                 sides["fault." + name] = _answers(pipeline, config, mix, seed, device)
         del pipeline
         gc.collect()
@@ -129,7 +129,7 @@ def main(argv=None) -> int:
     p.add_argument("--program-seeds", default="")
     p.add_argument("--control-seeds", default="")
     p.add_argument("--fault-seeds", default="")
-    p.add_argument("--faults", default="", help="names of test_portbench_faults.py's faults")
+    p.add_argument("--faults", default="", help="names of the faults in tests/faults/<attack>.py")
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     prog = [int(s) for s in args.program_seeds.split(",") if s]

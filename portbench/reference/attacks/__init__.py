@@ -15,9 +15,16 @@ Each module ``<attack>.py`` (the runner's attack name) gives:
   one step (its gradient by ``backward()``: the counter cannot follow
   ``autograd.grad`` into a module whose input is a leaf).
 
+and, where the attack requires a group of a size of its own:
+
+- ``n_inputs(config) -> int``: that size for the configuration ``config``
+  (a spatial fusion's is the count of its dataset's roles). The CPU tests'
+  small sizes (``tests/tiny.py``) take it in place of their N = 2; no run
+  reads it, since a configuration's own ``n_inputs`` holds at full size.
+
 ``models`` are ``weights.reference_models``; ``mix`` is the traffic mix;
-``group`` a ``Group``. A later attack adds a module here; nothing else
-changes.
+``group`` a ``Group``. A later attack adds a module here, and its planted
+faults in ``tests/faults/<attack>.py``; nothing else changes.
 """
 
 from __future__ import annotations

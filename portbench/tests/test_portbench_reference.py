@@ -13,6 +13,8 @@ the attack's generator were added to it (hashes pinned from that tree).
 
 import hashlib
 import math
+import sys
+import types
 
 import pytest
 import torch
@@ -22,7 +24,6 @@ from portbench.reference import models as ref
 from portbench.tests import tiny
 
 CELLS = tiny.cells()
-MIXES = sorted(p.stem for p in (harness.HERE / "traffic").glob("*.json"))
 
 
 @pytest.fixture(scope="module")
@@ -218,24 +219,58 @@ def test_cell_runs_and_is_correct_on_the_cpu(cell):
     assert set(out["metrics"]) >= {"attack_step_ms", "peak_mem_gib", "setup_s"}
 
 
-@pytest.mark.parametrize("mix_name", MIXES)
-def test_reference_answer_is_the_ports(mix_name):
+@pytest.mark.parametrize("cell", CELLS)
+def test_reference_answer_is_the_ports(cell):
     """In float32 on the CPU the reference's attack and the port's give the
-    same answer for the same group, to rounding (every mix, ``ffhq1024``'s
-    modules at the small sizes)."""
+    same answer for the same group, to rounding (every cell, its own
+    configuration at the small sizes, with their N)."""
     from portbench import traffic
     from portbench.reference import attacks
 
-    mix = harness.read_json(harness.HERE / "traffic" / f"{mix_name}.json")
-    ov = tiny.mix_overrides(mix, steps=4)
-    config = {**harness.load_cell("ffhq1024.whitebox")[2], **ov["config"]}
-    mix = {**mix, **ov["mix"]}
+    config, mix = _small(cell, steps=4)
+    n, size = int(config["n_inputs"]), int(config["generator"]["size"])
     seed = 2 ** 33 + 3
-    pipe = harness.build_program(config, seed, "cpu")
-    images, target, gen = traffic.group_inputs(seed, 0, 2, 32, mix["images"], "cpu")
-    adv = program.dispatch(pipe, mix["attack"], images, target,
-                           program.run_config(config, mix["attack"], mix["run_config"]), gen)
-    models = weights.reference_models(config, weights.make_state(config, seed, "cpu"))
-    group = harness.reference_group(config, mix, seed, 0, "cpu", models)
-    mine = attacks.load(mix["attack"]).answer(models, mix, group)
+    # four threads, as tiny.run: a signed step's pixel whose gradient is ~0
+    # follows the sums' rounding, and so their split between threads
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        pipe = harness.build_program(config, seed, "cpu")
+        images, target, gen = traffic.group_inputs(seed, 0, n, size, mix["images"], "cpu")
+        adv = program.dispatch(pipe, mix["attack"], images, target,
+                               program.run_config(config, mix["attack"], mix["run_config"]),
+                               gen)
+        models = weights.reference_models(config, weights.make_state(config, seed, "cpu"))
+        group = harness.reference_group(config, mix, seed, 0, "cpu", models)
+        mine = attacks.load(mix["attack"]).answer(models, mix, group)
+    finally:
+        torch.set_num_threads(threads)
+    assert adv.shape[0] == n
     assert (adv.permute(0, 3, 1, 2) - mine).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("hook", [None, 5])
+def test_small_sizes_take_the_attacks_n(hook, monkeypatch):
+    """An attack whose reference module gives ``n_inputs(config)`` runs at
+    that N in every small size (``tiny.overrides``, ``control_overrides``),
+    with the configuration it is asked for; without the hook, at 2."""
+    name = "stub_fixed_n"
+    stub = types.ModuleType(f"portbench.reference.attacks.{name}")
+    asked = []
+    if hook is not None:
+        def n_inputs(config):
+            asked.append(config["dataset"])
+            return hook
+
+        stub.n_inputs = n_inputs
+    monkeypatch.setitem(sys.modules, stub.__name__, stub)
+    spec, cell, config, mix, limits = harness.load_cell("ffhq1024.fusion_pgd_arith")
+    monkeypatch.setattr(harness, "load_cell",
+                        lambda *a: (spec, cell, config, {**mix, "attack": name}, limits))
+    want = 2 if hook is None else hook
+    assert tiny.overrides("any")["config"]["n_inputs"] == want
+    ov = tiny.control_overrides("any")
+    assert ov["config"]["n_inputs"] == want
+    assert ov["config"]["generator"] == tiny.CONTROL_CONFIG["generator"]  # a short-group mix
+    assert tiny.mix_overrides(config, {**mix, "attack": name})["config"]["n_inputs"] == want
+    assert asked == ([] if hook is None else ["ffhq"] * 3)

@@ -1,6 +1,7 @@
 """Small sizes for the CPU tests: a 32^2 generator (512 channels a plane, as
 the published table has below 64^2), a four-unit encoder of base width 16
-whose last stage is as wide as the style (128), N = 2, a few steps."""
+whose last stage is as wide as the style (128), N = 2 (or the size that the
+attack requires, ``n_inputs``), a few steps."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import copy
 import torch
 
 from portbench import harness
+from portbench.reference import attacks
 
 CONFIG = {"n_inputs": 2, "compute_dtype": "float32", "mean_latent_samples": 64,
           "generator": {"size": 32, "style_dim": 128, "n_mlp": 2, "channel_multiplier": 1},
@@ -31,28 +33,36 @@ def cells() -> list:
     return [w["name"] for w in harness.read_json(harness.ROOT / "BENCHMARK.json")["workloads"]]
 
 
+def n_inputs(config: dict, mix: dict) -> int:
+    """N at the small sizes: what the mix's attack requires for ``config``
+    where its reference module says (``n_inputs(config)``), 2 otherwise."""
+    required = getattr(attacks.load(mix["attack"]), "n_inputs", None)
+    return CONFIG["n_inputs"] if required is None else int(required(config))
+
+
 def overrides(cell: str, steps: int = 3) -> dict:
     """The cell's configuration and mix at the small sizes, ``steps`` steps
     a group, the window's one group checked."""
-    return mix_overrides(harness.load_cell(cell)[3], steps)
+    _, _, config, mix, _ = harness.load_cell(cell)
+    return mix_overrides(config, mix, steps)
 
 
-def mix_overrides(mix: dict, steps: int = 3) -> dict:
-    """``overrides`` of one traffic mix (its warm-up's settings name the
-    runner's count of steps)."""
+def mix_overrides(config: dict, mix: dict, steps: int = 3) -> dict:
+    """``overrides`` of one configuration and traffic mix (the mix's
+    warm-up settings name the runner's count of steps)."""
     rc = dict(mix["run_config"], **{k: steps for k in mix["warmup"]})
     ref = dict(mix["reference"], steps=steps)
-    return {"config": copy.deepcopy(CONFIG),
+    return {"config": {**copy.deepcopy(CONFIG), "n_inputs": n_inputs(config, mix)},
             "mix": {"run_config": rc, "reference": ref, "steps": steps,
                     "check": {**mix["check"], "groups": 1, "pool": 1}}}
 
 
 def control_overrides(cell: str, steps: int = 3) -> dict:
     """``overrides`` for the control tests: ``CONTROL_CONFIG`` where the
-    cell compares short groups, CONFIG otherwise."""
+    cell compares short groups, CONFIG otherwise (N as ``overrides``)."""
     ov = overrides(cell, steps)
     if "short" in ov["mix"]["check"]:
-        ov["config"] = copy.deepcopy(CONTROL_CONFIG)
+        ov["config"] = {**copy.deepcopy(CONTROL_CONFIG), "n_inputs": ov["config"]["n_inputs"]}
     return ov
 
 
