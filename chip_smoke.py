@@ -24,7 +24,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    4 x 512^2 c64, pgd_update and fused_adam on 4 x 512^2 x 3 and
    3 x 256^2 x 3; styled_conv_up, bf16 only, at the synthesis's up convs
    at the white-box batch 5 and car's batch 4, held to the folded
-   composite and timed beside the unfolded chain it replaced),
+   composite and timed beside the unfolded chain it replaced; the styled
+   convs' backward pair, bf16 only, at every styled and up conv of the same
+   two syntheses, held to its plain twin with the bias off the activation's
+   kink and with a synthesis's bias (the sign of z from the forward
+   kernel's y), two launches bit-equal, and timed alone and wrapped beside
+   the recomputed composite it replaced),
    in float32 (TF32 off) and bfloat16, with times, and untimed at the
    ragged tile and TMA-box edges of the bf16 forward (planes not a multiple
    of the tile, 1-3 pixels a side, Cin 48, Cout 96, bf16 inputs 2 bytes off
@@ -166,7 +171,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the ``tpufusion::styled_conv`` node and bit-equal to the eager forwards
    (export and load seconds, bytes, forward ms). The launch counts are set
    to 0 just before and read just after each of three runs: the sharded
-   routes (styled_conv, conv3x3 forward and input grad, pgd_update and
+   routes (styled_conv, both styled backward pairs, pgd_update and
    fused_adam each launched), the DCP resume (all but pgd_update) and the
    exported programs' forwards (styled_conv);
 5h. the car (512^2, N = 4) and church (256^2, N = 3) families at their
@@ -183,10 +188,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (white_box_target, fusion_pgd_spatial and blur at 2 steps), ``invert
    --dataset car`` (384 x 512 inversions) and ``fuse``. The launch counts
    are read around each run and held to the generator's ``conv_plan()``:
-   styled_conv 8 (car) or 7 (church) a synthesis, conv3x3's forward and
-   input grad at least once a car step and never in church's phase (no
-   32/64-channel conv), pgd_update once a PGD step, fused_adam once a
-   white-box iteration and a CW step;
+   styled_conv 8 (car) or 7 (church) a synthesis, a styled backward pair
+   at least once a step for each of its styled and up convs, never the
+   recomputed composite nor conv3x3's kernels, pgd_update once a PGD step,
+   fused_adam once a white-box iteration and a CW step;
 7. the kernels line (JSON, one object) and the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -204,6 +209,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -452,6 +458,15 @@ UP_BATCHES = {5: ("whitebox", 1024), 4: ("car", 512)}
 UP_RAGGED = [(2, 13, 13, 64, 8), (2, 40, 40, 32, 16), (1, 3, 37, 64, 64), (3, 70, 90, 128, 64),
              (1, 9, 21, 48, 32), (4, 30, 20, 48, 48), (1, 1, 1, 32, 32), (2, 2, 3, 48, 16),
              (3, 16, 16, 512, 512), (2, 33, 17, 16, 24)]
+# the styled convs' backward (bf16, K1 + K2): timed at every styled and up
+# conv of the white-box (batch 5) and car (batch 4) synthesis, (kind, plane,
+# Cin, Cout) with x (N, h, h, Cin); then the ragged edges untimed, the
+# cases of STYLED_RAGGED and UP_RAGGED that K2 takes (Cin % 32 == 0),
+# (n, h, w, cin, cout, up)
+BWD_SHAPES = ([("conv", res, ch, ch) for res, ch in STYLED_SHAPES]
+              + [("up", h, cin, cout) for h, cin, cout in UP_SHAPES])
+BWD_RAGGED = ([(*shape, False) for shape in STYLED_RAGGED if shape[3] % 32 == 0]
+              + [(*shape, True) for shape in UP_RAGGED if shape[3] % 32 == 0])
 # bf16 inputs 2 bytes past a 16-byte boundary (the wrappers copy them to an
 # aligned buffer for the TMA): styled_conv and conv3x3 cases of the lists above
 VIEW_OFF = {"styled": (3, 19, 35, 32, 32), "conv": (2, 37, 53, 64)}
@@ -822,6 +837,78 @@ def check_kernels(torch, records, floor=None):
                extra_fields=extra)
         if conv is not None:
             log(f"    folded composite {extra['composite_ms']:.4f} ms cold [graph replay]")
+    # the styled convs' backward (bf16: K1 + K2, csrc/styled_conv.cu) against
+    # its plain twin, twice: with the bias at +8 / -8 on alternate channels,
+    # so that no pre-activation z lies within a rounding of the leaky ReLU's
+    # kink (where the gradient jumps and the twin's float32 sums, in another
+    # order, may fall on the other side), and with a synthesis's bias (0.1
+    # randn), z near the kink at some pixels, the twin taking the sign of z
+    # from the forward kernel's own y (K1 re-runs the forward's conv and
+    # epilogue arithmetic, so its z is the forward's): a K1 that leaves out
+    # the noise, reads another pixel's or phase's, or leaves out sigma flips
+    # signs there. Two launches bit-equal; timed once: the pair alone
+    # (prepared: the kernels and the partials' sums) and wrapped (the
+    # weights folded and packed twice, sigma, the noise plane), beside the
+    # recomputed composite it replaces (autograd of styled_conv_reference /
+    # styled_conv_up_reference with respect to x and the style)
+    bwd_cases = [(n, h, h, cin, cout, kind == "up", path)
+                 for n, (path, top) in UP_BATCHES.items()
+                 for kind, h, cin, cout in BWD_SHAPES if (2 * h if kind == "up" else h) <= top]
+    bwd_cases += [(*shape, None) for shape in BWD_RAGGED]
+    for n, h, wd, cin, cout, up, path in bwd_cases:
+        oh, ow = (2 * h, 2 * wd) if up else (h, wd)
+        x, w, s, noise = (rn(n, h, wd, cin, dtype=torch.bfloat16),
+                          rn(3, 3, cin, cout, dtype=torch.float32),
+                          rn(n, cin, dtype=torch.float32) * 0.5 + 1.0,
+                          rn(1, oh, ow, 1, dtype=torch.float32))
+        ns, g = torch.tensor(0.1, device=dev), rn(n, oh, ow, cout, dtype=torch.bfloat16)
+        kernel = "styled_conv_up_bwd" if up else "styled_conv_bwd"
+        forward = sc.styled_conv_up_kernel if up else sc.styled_conv_kernel
+        cg = 4 * cout if up else cout
+        launcher = functools.partial(sc.styled_conv_backward_launcher, up=up)
+        wrapper = functools.partial(sc.styled_conv_backward_kernel, up=up)
+        for synthesis in (False, True):
+            bias = (rn(cout, dtype=torch.float32) * 0.1 if synthesis
+                    else 8.0 * (1 - 2 * (torch.arange(cout, device=dev) % 2)).float())
+            args = (x, w, s, noise, ns, bias, g)
+            case = f"n{n} {h}^2 c{cin}->{cout}" if h == wd else f"n{n} {h}x{wd} c{cin}->{cout}"
+            case += " synth bias" if synthesis else ""
+            got, again = wrapper(*args), wrapper(*args)
+            positive = forward(*args[:6]) > 0 if synthesis else None
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                failures.append(f"{kernel} {case}: two launches on the same inputs differ")
+            want = sc.styled_conv_backward_plain(*args, up=up, positive=positive)
+            errs = [_err(torch, a, b) for a, b in zip(got, want)]
+            err, rel = max(e for e, _ in errs), max(r for _, r in errs)
+            timed = path if not synthesis else None
+            conv, extra = None, {"mma_class": "+".join(
+                (c3.mma_class(n, h, wd, cin, cg).name, c3.mma_class(n, h, wd, cg, cin).name))}
+            # the function reads x and g and writes gx; the design also
+            # writes gc and reads it back and reads x twice (K1, K2): its
+            # bound beside the function's
+            design = 2 * n * h * wd * 3 * (cin + cg) + 2 * 9 * cin * cg * 2
+            ops = 4 * 9 * cin * cg * n * h * wd  # twice the forward's
+            if timed is not None:
+                conv = conv_timings(torch, launcher, wrapper, None, args, n * h * wd * cin * 2)
+                conv["plain_ms"] = statistics.median(cold_ms(
+                    torch, lambda *t: sc.styled_conv_backward_plain(*t, up=up), list(args)))
+                reference = sc.styled_conv_up_reference if up else sc.styled_conv_reference
+
+                def composite(x, w, s, noise, ns, b, g):
+                    with torch.enable_grad():
+                        xi, si = x.detach().requires_grad_(), s.detach().requires_grad_()
+                        return torch.autograd.grad(reference(xi, w, si, noise, ns, b), (xi, si),
+                                                   g)
+                extra["composite_ms"] = statistics.median(cold_ms(torch, composite, list(args)))
+                extra["design_bound_ms"] = bound_ms(design, ops, "bfloat16")[0]
+            record(kernel, case, "bfloat16", err, rel,
+                   nbytes=2 * n * h * wd * (2 * cin + cg) + 9 * cin * cg * 2,
+                   ops=ops, path=timed, conv=conv, extra_fields=extra)
+            if conv is not None:
+                log(f"    recomputed composite {extra['composite_ms']:.4f} ms cold [graph replay];"
+                    f" the design's bound (gc written and read, x twice) "
+                    f"{extra['design_bound_ms']:.4f} ms")
     # fused Adam (float32 only): the white-box pixel buffer and an odd size,
     # aligned and on views off a 16-byte boundary, at steps 1 and 50
     for shape, path in ADAM_SHAPES.items():
@@ -1379,16 +1466,19 @@ GRAPH_ATOL = {"fusion": 0.0, "classifier": 1e-6}
 HOST_REPLAYS = 5  # replays timed one at a time for the host us a replay
 
 # each KERNEL_NAMES group -> the launch count of the wrapper that launches
-# its kernel; the conv3x3 forward and input grad share one kernel, so the
-# profiler sees their sum
+# its kernel; the conv3x3 forward and input grad share one kernel, and so
+# do both styled backwards' K2, so the profiler sees their sums
 GROUP_COUNTS = {"styled_conv bf16": "styled_conv", "styled_conv fp32": "styled_conv",
                 "styled_conv_up bf16": "styled_conv_up",
+                "styled_conv_bwd K1": "styled_conv_bwd",
+                "styled_conv_up_bwd K1": "styled_conv_up_bwd",
+                "styled_conv backward K2": "styled_conv_bwd+up_bwd",
                 "conv3x3_fwd/dgrad bf16": "conv3x3_fwd+dgrad",
                 "conv3x3_fwd/dgrad fp32": "conv3x3_fwd+dgrad",
                 "conv3x3_wgrad bf16": "conv3x3_wgrad", "conv3x3_wgrad fp32": "conv3x3_wgrad",
                 "pgd_update": "pgd_update", "fused_adam": "fused_adam"}
 AUDITED = ("styled_conv", "styled_conv_up", "conv3x3_fwd+dgrad", "conv3x3_wgrad", "pgd_update",
-           "fused_adam")
+           "fused_adam", "styled_conv_bwd", "styled_conv_up_bwd", "styled_conv_bwd+up_bwd")
 
 
 def audited_counts(counts):
@@ -1398,7 +1488,11 @@ def audited_counts(counts):
             "styled_conv_up": counts.get("styled_conv_up", 0),
             "conv3x3_fwd+dgrad": counts.get("conv3x3_fwd", 0) + counts.get("conv3x3_dgrad", 0),
             "conv3x3_wgrad": counts.get("conv3x3_wgrad", 0),
-            "pgd_update": counts.get("pgd_update", 0), "fused_adam": counts.get("fused_adam", 0)}
+            "pgd_update": counts.get("pgd_update", 0), "fused_adam": counts.get("fused_adam", 0),
+            "styled_conv_bwd": counts.get("styled_conv_bwd", 0),
+            "styled_conv_up_bwd": counts.get("styled_conv_up_bwd", 0),
+            "styled_conv_bwd+up_bwd": (counts.get("styled_conv_bwd", 0)
+                                       + counts.get("styled_conv_up_bwd", 0))}
 
 
 def kernel_counts(rows):
@@ -1916,12 +2010,15 @@ def run_main_path(torch, card):
     if not final_loss < trace[0]:
         fail(f"loss did not descend: {trace[0]} -> {final_loss}")
     steps = 1 + pgd_cfg.pgd.steps  # FGSM + PGD
-    per_fwd, n_c3 = family_expectations(pipe.generator.conv_plan())  # 9 and 2 at 1024^2
-    need = {"styled_conv": per_fwd * (n_fwd + steps), "conv3x3_fwd": n_c3 * steps,
-            "conv3x3_dgrad": n_c3 * steps, "pgd_update": steps}
+    per_fwd, n_up = family_expectations(pipe.generator.conv_plan())  # 9 and 8 at 1024^2
+    need = {"styled_conv": per_fwd * (n_fwd + steps), "styled_conv_bwd": per_fwd * steps,
+            "styled_conv_up_bwd": n_up * steps, "pgd_update": steps}
     for name, n_min in need.items():
         if launches[name] < n_min:
             fail(f"main path launched {name} {launches[name]} times, expected >= {n_min}")
+    if launches["styled_conv_bwd_composite"]:
+        fail(f"main path recomputed the styled composite "
+             f"{launches['styled_conv_bwd_composite']} times, expected 0")
     if fwd_launches != per_fwd * n_fwd:
         fail(f"{n_fwd} fused forwards launched styled_conv {fwd_launches} times, "
              f"expected {per_fwd * n_fwd}")
@@ -2095,9 +2192,16 @@ def run_whitebox_path(torch, card, pipe):
     adam_bound = WB_ITERS * WB_LR * (1 - B1) / math.sqrt(1 - B2)
     if not (torch.isfinite(adv).all() and 0 < moved <= adam_bound + 1e-6):
         fail(f"white-box pixels moved {moved}, expected in (0, {adam_bound}]")
-    per_fwd, n_c3 = family_expectations(pipe.generator.conv_plan())
+    per_fwd, n_up = family_expectations(pipe.generator.conv_plan())
     need = {"fused_adam": WB_ITERS, "styled_conv": per_fwd * WB_ITERS,
-            "conv3x3_fwd": n_c3 * WB_ITERS, "conv3x3_dgrad": n_c3 * WB_ITERS}
+            "styled_conv_bwd": per_fwd * WB_ITERS, "styled_conv_up_bwd": n_up * WB_ITERS}
+    # the backward pairs of every styled and up conv (9 + 8 at 1024^2) a
+    # replay, and no recomputed composite
+    if (per_step.get("styled_conv_bwd"), per_step.get("styled_conv_up_bwd"),
+            per_step.get("styled_conv_bwd_composite")) != (per_fwd, n_up, 0):
+        fail(f"a white-box replay launches styled_conv_bwd {per_step.get('styled_conv_bwd')}, "
+             f"styled_conv_up_bwd {per_step.get('styled_conv_up_bwd')} and the composite "
+             f"{per_step.get('styled_conv_bwd_composite')} times, expected {per_fwd}, {n_up}, 0")
     # measured: one launch a replay, and one a step of run_whitebox and of
     # graphed_timing's calls, exactly
     if per_step.get("fused_adam") != 1:
@@ -2148,9 +2252,10 @@ SPATIAL_N, SPATIAL_STEPS = 5, 5  # the ffhq roles; BASELINE config 3
 FUSION_MODES = ("spatial", "arithmetic")
 PARTIAL_TOL = 3e-2  # batch 6 against batch 1 in bf16, of max(1, max|ref|)
 # the fewest launches of each kernel in one spatial PGD step: the fused
-# synthesis's 9 styled convs, the 32/64-channel convs of its backward, the
+# synthesis's 9 styled convs, its backward's pairs (9 styled, 8 up), the
 # pixel update
-SPATIAL_STEP_MIN = {"styled_conv": 9, "conv3x3_fwd": 2, "conv3x3_dgrad": 2, "pgd_update": 1}
+SPATIAL_STEP_MIN = {"styled_conv": 9, "styled_conv_bwd": 9, "styled_conv_up_bwd": 8,
+                    "pgd_update": 1}
 
 
 def spatial_launch_failures(per_step, fwd_launches, eval_launches, n_fwd):
@@ -2316,7 +2421,7 @@ BASELINE_SCALE = 0.4  # the runner's --scale: the blur's k and dp_noise's scale
 WBP_ITERS = 3  # white_box_patch iterations, lr 1e-4 (configs/ffhq_whitebox.json)
 LEGACY_ITERS, LEGACY_EVERY = 3, 2
 DP_MEAN_TOL = 0.02  # mean |noise| within 2% of the scale (E|Laplace(b)| = b)
-PATCH_PATH_KERNELS = ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "fused_adam")
+PATCH_PATH_KERNELS = ("styled_conv", "styled_conv_bwd", "styled_conv_up_bwd", "fused_adam")
 
 
 def _fuse_ok(torch, fused, n=1, size=1024):
@@ -2324,8 +2429,8 @@ def _fuse_ok(torch, fused, n=1, size=1024):
 
 
 def patch_launch_failures(launches):
-    """What phase 5d's launch counts fall short of: styled_conv, the conv3x3
-    forward and input grad and fused_adam launched, the weight grad not
+    """What phase 5d's launch counts fall short of: styled_conv, both
+    styled backward pairs and fused_adam launched, the weight grad not
     (the weights are frozen)."""
     out = [f"phase 5d launched {k} no time" for k in PATCH_PATH_KERNELS if launches[k] <= 0]
     if launches["conv3x3_wgrad"] != 0:
@@ -3044,8 +3149,8 @@ CLI_STEPS = 2  # --pgd_steps and --n_iters
 CLI_EPS = 8.0 / 255.0 * 2.0
 CLI_PGD_ATTACKS = ("fusion_pgd_arith",)
 # the kernels the CLI's attacks must launch: the fusion PGD's synthesis,
-# its backward's 32/64-channel convs and pixel update; the white-box Adam
-CLI_KERNELS = ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "pgd_update", "fused_adam")
+# its backward's pairs and pixel update; the white-box Adam
+CLI_KERNELS = ("styled_conv", "styled_conv_bwd", "styled_conv_up_bwd", "pgd_update", "fused_adam")
 # the landmark net on the card against the CPU, in pixels of a 1024^2 image,
 # landmarks and the alignment quad's corners
 LANDMARK_TOL_PX = 1.0
@@ -3297,12 +3402,13 @@ SH_CW_N, SH_CW_STEPS, SH_CW_LR = 8, 5, 0.01  # resnet18 CW, the runner's lr
 SH_GROUPS = 2  # fusion groups of N = 5
 SH_PATCH_IMAGES, SH_PATCH_COUNT = 2, 2  # 1 epoch, max_count 2
 # the kernels each counted run of phase 5g must launch: the sharded routes,
-# all five of the attacks' kernels; the DCP resume's two white-box
+# the attacks' kernels; the DCP resume's two white-box
 # iterations, the synthesis, its backward and Adam; the exported programs'
 # forwards, the synthesis
 PHASE_5G_KERNELS = {
-    "sharded": ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "pgd_update", "fused_adam"),
-    "resume": ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "fused_adam"),
+    "sharded": ("styled_conv", "styled_conv_bwd", "styled_conv_up_bwd", "pgd_update",
+                "fused_adam"),
+    "resume": ("styled_conv", "styled_conv_bwd", "styled_conv_up_bwd", "fused_adam"),
     "export": ("styled_conv",),
 }
 # With deterministic algorithms required, the one-rank routes run the
@@ -3714,13 +3820,11 @@ INVERT_N = 2
 
 def family_expectations(plan):
     """From a generator's ``conv_plan()``: the styled_conv launches of one
-    synthesis forward (its non-upsampling 3x3 convs) and how many of those
-    convs run through conv3x3 in a backward (Cin = Cout in its channel set:
-    config-f has 64 channels at 512^2, 32 at 1024^2, none below)."""
-    from tpufusion_torch.ops.conv3x3 import CHANNELS
-
-    convs = [(cin, cout) for cin, cout, kind in plan if kind == "conv"]
-    return len(convs), sum(cin == cout and cin in CHANNELS for cin, cout in convs)
+    synthesis forward (its non-upsampling 3x3 convs, each one
+    ``styled_conv_bwd`` pair in a backward) and its up convs (each one
+    ``styled_conv_up_bwd`` pair in a backward)."""
+    kinds = [kind for _, _, kind in plan]
+    return kinds.count("conv"), kinds.count("up")
 
 
 def family_launch_failures(fam, plan, runs):
@@ -3731,11 +3835,11 @@ def family_launch_failures(fam, plan, runs):
     iterations), "classifier_pgd" and, where it ran, "cw" (``FAMILY_STEPS``
     steps each), "cli" (the attack_run call) and "all" (the whole phase).
     styled_conv exactly ``per_fwd`` a synthesis (``family_expectations``);
-    conv3x3's forward and input grad at least once per 32/64-channel conv a
-    step, and exactly 0 in every run of a family whose generator has none
-    (church); pgd_update once a PGD step; fused_adam once a white-box
-    iteration and a CW step; the weight grad never."""
-    per_fwd, n_c3 = family_expectations(plan)
+    the backward pairs at least ``per_fwd`` and ``n_up`` a step; pgd_update
+    once a PGD step; fused_adam once a white-box iteration and a CW step;
+    never the recomputed composite, nor conv3x3's kernels (the frozen bf16
+    synthesis reaches them only through it), nor the weight grad."""
+    per_fwd, n_up = family_expectations(plan)
     out = []
 
     def need(run, kernel, ok, what):
@@ -3758,14 +3862,13 @@ def family_launch_failures(fam, plan, runs):
         need("cw", "pgd_update", lambda v: v == 0, 0)
     for k in ("styled_conv", "pgd_update", "fused_adam"):
         need("cli", k, lambda v: v > 0, "> 0")
-    for k in ("conv3x3_fwd", "conv3x3_dgrad"):
-        if n_c3:
-            for run in ("pgd_step", "spatial_step"):
-                need(run, k, lambda v: v >= n_c3, f">= {n_c3}")
-            need("whitebox", k, lambda v: v >= n_c3 * FAMILY_STEPS, f">= {n_c3 * FAMILY_STEPS}")
-            need("cli", k, lambda v: v > 0, "> 0")
-        else:  # no 32/64-channel conv: the kernel has no work on this path
-            need("all", k, lambda v: v == 0, 0)
+    for k, per in (("styled_conv_bwd", per_fwd), ("styled_conv_up_bwd", n_up)):
+        for run in ("pgd_step", "spatial_step"):
+            need(run, k, lambda v: v >= per, f">= {per}")
+        need("whitebox", k, lambda v: v >= per * FAMILY_STEPS, f">= {per * FAMILY_STEPS}")
+        need("cli", k, lambda v: v > 0, "> 0")
+    for k in ("styled_conv_bwd_composite", "conv3x3_fwd", "conv3x3_dgrad"):
+        need("all", k, lambda v: v == 0, 0)
     need("all", "conv3x3_wgrad", lambda v: v == 0, "0 (the weights are frozen)")
     return out
 
@@ -3823,11 +3926,11 @@ def run_family_path(torch, card, fam):
     pipe = FusionPipeline.create(fam, device="cuda", size=size, **FAMILY_PIPELINE)
     torch.cuda.synchronize()
     plan = pipe.generator.conv_plan()
-    per_fwd, n_c3 = family_expectations(plan)
+    per_fwd, n_up = family_expectations(plan)
     log(f"  {fam} pipeline built in {time.perf_counter() - t0:.2f} s (config-f {size}^2 "
         f"generator, {pipe.generator.n_latent} W+ rows, e4e IR-SE-50 at "
         f"{pipe.encoder_input_size}^2, pool factor {pipe.pool_factor}); per synthesis "
-        f"forward {per_fwd} styled convs, {n_c3} through conv3x3 in a backward")
+        f"forward {per_fwd} styled convs and {n_up} up convs, a backward pair each")
     gen = torch.Generator(device="cuda").manual_seed(11)
     inputs = torch.rand((n, size, size, 3), generator=gen, device="cuda") * 2 - 1
     target = torch.rand((1, size, size, 3), generator=gen, device="cuda") * 2 - 1
@@ -4204,6 +4307,9 @@ def time_blender(torch, card, pipe, reps=5):
 # kernels, and their fp32 (CUDA cores) and bf16 (tensor cores) routes, apart
 KERNEL_NAMES = (("conv3x3_wgmma_kernel<true", "styled_conv bf16"),
                 ("styled_conv_up_wgmma_kernel", "styled_conv_up bf16"),
+                ("styled_conv_bwd_wgmma_kernel<false", "styled_conv_bwd K1"),
+                ("styled_conv_bwd_wgmma_kernel<true", "styled_conv_up_bwd K1"),
+                ("styled_conv_dgrad_wgmma_kernel", "styled_conv backward K2"),
                 ("conv3x3_wgmma_kernel<false", "conv3x3_fwd/dgrad bf16"),
                 ("conv3x3_fwd_kernel<float, true>", "styled_conv fp32"),
                 ("conv3x3_fwd_kernel<float, false>", "conv3x3_fwd/dgrad fp32"),
@@ -4300,8 +4406,12 @@ def ptxas_summary(text: str):
             tile = re.search(r"(WgTile|WgradTile)I((?:L[ib]\d+E)+)", rest)
             if tile:
                 args = ", ".join(re.findall(r"L[ib](\d+)E", tile.group(2)))
-                kind = "" if tile.group(1) == "WgradTile" else \
-                    ("styled, " if rest.startswith("ILb1") else "plain, ")
+                if tile.group(1) == "WgradTile" or not rest.startswith("ILb"):
+                    kind = ""
+                elif name == "styled_conv_bwd_wgmma_kernel":  # K1's bool: the up conv's
+                    kind = "up, " if rest.startswith("ILb1") else "conv, "
+                else:
+                    kind = "styled, " if rest.startswith("ILb1") else "plain, "
                 name += f"<{kind}{tile.group(1)}<{args}>>"
             elif rest.startswith("I"):
                 dtype = "float" if rest[1] == "f" else "bf16"
@@ -4319,10 +4429,12 @@ def ptxas_summary(text: str):
 
 
 # The bf16 conv kernels' SASS: Hopper's warpgroup MMA (HGMMA) and tensor
-# copies (UTMALDG) in the forward (every tile class, both libraries) and the
-# weight grad (conv3x3's library), and no mma.sync (HMMA) left
+# copies (UTMALDG) in the forward (every tile class, both libraries), the
+# styled convs' backward pair (styled_conv's library) and the weight grad
+# (conv3x3's library), and no mma.sync (HMMA) left
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA")
-SASS_KERNELS = {"styled_conv": ("conv3x3_wgmma_kernel",),
+SASS_KERNELS = {"styled_conv": ("conv3x3_wgmma_kernel", "styled_conv_bwd_wgmma_kernel",
+                                "styled_conv_dgrad_wgmma_kernel"),
                 "conv3x3": ("conv3x3_wgmma_kernel", "conv3x3_wgrad_wgmma_kernel")}
 
 

@@ -83,21 +83,40 @@ SASS = """\
 """
 
 
+# the styled convs' backward pair in styled_conv's library (K1, K2)
+SASS_BWD = """\
+        code for sm_90a
+                Function : _ZN2tf28styled_conv_bwd_wgmma_kernelILb1ENS_6WgTileILi16ELi16ELi2ELi2ELi2ELi128ELi16ELi4ELb0ELi1EEEEEv14CUtensorMap_st
+        /*0a10*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*1d40*/                   HGMMA.64x128x16.F32.BF16 R24, R88, gdesc[UR4], R24 ;
+                Function : _ZN2tf30styled_conv_dgrad_wgmma_kernelINS_6WgTileILi8ELi16ELi2ELi2ELi1ELi64ELi32ELi3ELb0ELi1EEEEEv14CUtensorMap_st
+        /*0a10*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*1d40*/                   HGMMA.64x64x16.F32.BF16 R24, R88, gdesc[UR4], R24 ;
+"""
+
+
 def test_sass_gate_reads_the_forward_kernels(smoke):
     """Phase 2's SASS gate counts HGMMA, UTMALDG and HMMA in the bf16 conv
     kernels only (the float32 weight grad is not one), and fails a forward
-    kernel without wgmma or TMA, or with mma.sync."""
+    kernel without wgmma or TMA, or with mma.sync; styled_conv's library
+    must hold the backward pair too."""
     counts = smoke.sass_counts(SASS)
     fwd, wgrad = counts
     assert counts[fwd] == {"HGMMA": 1, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 0}
     assert smoke.sass_failures(counts) == []
-    assert smoke.sass_failures({fwd: counts[fwd]}, smoke.SASS_KERNELS["styled_conv"]) == []
+    styled = {fwd: counts[fwd], **smoke.sass_counts(SASS_BWD)}
+    assert len(styled) == 3
+    assert smoke.sass_failures(styled, smoke.SASS_KERNELS["styled_conv"]) == []
+    assert smoke.sass_failures({fwd: counts[fwd]}, smoke.SASS_KERNELS["styled_conv"]) == [
+        "no styled_conv_bwd_wgmma_kernel in the SASS",
+        "no styled_conv_dgrad_wgmma_kernel in the SASS"]
     for bad in ({"HGMMA": 0, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 0},
                 {"HGMMA": 4, "UTMALDG": 0, "UBLKCP": 1, "HMMA": 0},
                 {"HGMMA": 4, "UTMALDG": 1, "UBLKCP": 1, "HMMA": 2}):
         assert smoke.sass_failures({**counts, fwd: bad}) == [f"{fwd}: {bad}"]
     assert smoke.sass_failures({}, smoke.SASS_KERNELS["styled_conv"]) == [
-        "no conv3x3_wgmma_kernel in the SASS"]
+        "no conv3x3_wgmma_kernel in the SASS", "no styled_conv_bwd_wgmma_kernel in the SASS",
+        "no styled_conv_dgrad_wgmma_kernel in the SASS"]
 
 
 def test_sass_gate_reads_the_weight_grad_kernel(smoke):
@@ -181,15 +200,16 @@ def test_summarize_carries_the_spatial_run(smoke):
     assert "spatial" not in by_name["conv3x3"]  # the batch-1 shapes are the PGD path's
 
 
-GOOD_STEP = {"styled_conv": 9.0, "conv3x3_fwd": 2.0, "conv3x3_dgrad": 2.0, "conv3x3_wgrad": 0.0,
-             "pgd_update": 1.0, "fused_adam": 0.0}
+GOOD_STEP = {"styled_conv": 9.0, "conv3x3_fwd": 0.0, "conv3x3_dgrad": 0.0, "conv3x3_wgrad": 0.0,
+             "pgd_update": 1.0, "fused_adam": 0.0, "styled_conv_bwd": 9.0,
+             "styled_conv_up_bwd": 8.0}
 
 
 @pytest.mark.parametrize("change,expect", [
     ({}, None),
     ({"styled_conv": 10.0}, None),  # a floor, not an exact count
-    ({"conv3x3_fwd": 0.0}, "conv3x3_fwd 0.0 times"),
-    ({"conv3x3_dgrad": 1.0}, "conv3x3_dgrad 1.0 times"),
+    ({"styled_conv_bwd": 0.0}, "styled_conv_bwd 0.0 times"),
+    ({"styled_conv_up_bwd": 7.0}, "styled_conv_up_bwd 7.0 times"),
     ({"pgd_update": 0.0}, "pgd_update 0.0 times"),
     ({"styled_conv": 4.0}, "styled_conv 4.0 times"),
 ])
@@ -206,16 +226,17 @@ def test_spatial_launch_check_counts_forwards_and_partials(smoke):
     assert len(short) == 1 and "partial fusions launched styled_conv 9" in short[0]
 
 
-PATCH_COUNTS = {"styled_conv": 342, "conv3x3_fwd": 34, "conv3x3_dgrad": 34, "conv3x3_wgrad": 0,
-                "pgd_update": 0, "fused_adam": 17}
+PATCH_COUNTS = {"styled_conv": 342, "conv3x3_fwd": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
+                "pgd_update": 0, "fused_adam": 17, "styled_conv_bwd": 153,
+                "styled_conv_up_bwd": 136}
 
 
 @pytest.mark.parametrize("change,expect", [
     ({}, None),
     ({"pgd_update": 3}, None),  # off the path, not required
     ({"styled_conv": 0}, "styled_conv no time"),
-    ({"conv3x3_fwd": 0}, "conv3x3_fwd no time"),
-    ({"conv3x3_dgrad": 0}, "conv3x3_dgrad no time"),
+    ({"styled_conv_bwd": 0}, "styled_conv_bwd no time"),
+    ({"styled_conv_up_bwd": 0}, "styled_conv_up_bwd no time"),
     ({"fused_adam": 0}, "fused_adam no time"),
     ({"conv3x3_wgrad": 1}, "weight grad 1 times"),
 ])
@@ -339,10 +360,10 @@ def test_summarize_carries_the_classifier_run(smoke):
 # ---------------------------------------------------------------------------
 
 CLI_COUNTS = {"styled_conv": 162, "conv3x3_fwd": 8, "conv3x3_dgrad": 8, "conv3x3_wgrad": 0,
-              "pgd_update": 2, "fused_adam": 2}
+              "pgd_update": 2, "fused_adam": 2, "styled_conv_bwd": 36, "styled_conv_up_bwd": 32}
 
 
-@pytest.mark.parametrize("kernel", [None, "styled_conv", "conv3x3_fwd", "conv3x3_dgrad",
+@pytest.mark.parametrize("kernel", [None, "styled_conv", "styled_conv_bwd", "styled_conv_up_bwd",
                                     "pgd_update", "fused_adam"])
 def test_cli_launch_check(smoke, kernel):
     counts = dict(CLI_COUNTS)
@@ -447,20 +468,22 @@ def test_landmark_check(smoke):
 # phase 5g: the scale-out routes
 
 SHARDED_COUNTS = {"styled_conv": 216, "conv3x3_fwd": 20, "conv3x3_dgrad": 20,
-                  "conv3x3_wgrad": 0, "pgd_update": 10, "fused_adam": 7}
+                  "conv3x3_wgrad": 0, "pgd_update": 10, "fused_adam": 7, "styled_conv_bwd": 90,
+                  "styled_conv_up_bwd": 80}
 PHASE_5G_COUNTS = {
     "sharded": SHARDED_COUNTS,
     "resume": {"styled_conv": 18, "conv3x3_fwd": 4, "conv3x3_dgrad": 4, "conv3x3_wgrad": 0,
-               "pgd_update": 0, "fused_adam": 2},
+               "pgd_update": 0, "fused_adam": 2, "styled_conv_bwd": 18, "styled_conv_up_bwd": 16},
     "export": {"styled_conv": 36, "conv3x3_fwd": 0, "conv3x3_dgrad": 0, "conv3x3_wgrad": 0,
-               "pgd_update": 0, "fused_adam": 0},
+               "pgd_update": 0, "fused_adam": 0, "styled_conv_bwd": 0, "styled_conv_up_bwd": 0},
 }
 
 
 @pytest.mark.parametrize("run,kernel", [
     (None, None), *[(r, k) for r, ks in (
-        ("sharded", ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "pgd_update", "fused_adam")),
-        ("resume", ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "fused_adam")),
+        ("sharded", ("styled_conv", "styled_conv_bwd", "styled_conv_up_bwd", "pgd_update",
+                     "fused_adam")),
+        ("resume", ("styled_conv", "styled_conv_bwd", "styled_conv_up_bwd", "fused_adam")),
         ("export", ("styled_conv",))) for k in ks]])
 def test_sharded_launch_check(smoke, run, kernel):
     """Each of phase 5g's three counted runs is gated on its own counts: a
@@ -544,30 +567,31 @@ def _plan(size):
     return Generator.conv_plan(types.SimpleNamespace(size=size, channel_multiplier=2))
 
 
-@pytest.mark.parametrize("size,expect", [(512, (8, 1)), (256, (7, 0)), (1024, (9, 2))])
+@pytest.mark.parametrize("size,expect", [(512, (8, 7)), (256, (7, 6)), (1024, (9, 8))])
 def test_family_expectations_come_from_the_plan(smoke, size, expect):
-    """styled_conv launches per synthesis forward and the convs whose
-    backward runs through conv3x3: car 8 and 1 (64 channels at 512^2),
-    church 7 and none (no 32/64-channel layer), FFHQ 9 and 2."""
+    """styled_conv launches per synthesis forward (a styled backward pair
+    each) and the up convs (an up backward pair each): car 8 and 7, church
+    7 and 6, FFHQ 9 and 8."""
     assert smoke.family_expectations(_plan(size)) == expect
 
 
 def _family_runs(fam):
     keys = ("styled_conv", "conv3x3_fwd", "conv3x3_dgrad", "conv3x3_wgrad", "pgd_update",
-            "fused_adam")
-    per_fwd, n_c3 = {"car": (8, 1), "church": (7, 0)}[fam]
+            "fused_adam", "styled_conv_bwd", "styled_conv_up_bwd", "styled_conv_bwd_composite")
+    per_fwd, n_up = {"car": (8, 7), "church": (7, 6)}[fam]
     steps = 3
 
-    def c(styled=0, c3=0, pgd=0, adam=0):
-        return dict(zip(keys, (styled, c3, c3, 0, pgd, adam)))
+    def c(styled=0, bwd=0, pgd=0, adam=0, up=0):
+        return dict(zip(keys, (styled, 0, 0, 0, pgd, adam, bwd, up, 0)))
 
     runs = {"forwards": c(per_fwd * 3), "eval": c(2 * per_fwd),
-            "pgd_step": c(2 * per_fwd, 2 * n_c3, 1), "spatial_step": c(2 * per_fwd, n_c3, 1),
-            "whitebox": c(2 * per_fwd * steps, 2 * n_c3 * steps, 0, steps),
-            "classifier_pgd": c(0, 0, steps), "cli": c(100, 4 * n_c3, 2, 2)}
+            "pgd_step": c(2 * per_fwd, per_fwd, 1, up=n_up),
+            "spatial_step": c(2 * per_fwd, per_fwd, 1, up=n_up),
+            "whitebox": c(2 * per_fwd * steps, per_fwd * steps, 0, steps, n_up * steps),
+            "classifier_pgd": c(0, 0, steps), "cli": c(100, 4 * per_fwd, 2, 2, 4 * n_up)}
     if fam == "car":
         runs["cw"] = c(0, 0, 0, steps)
-    runs["all"] = c(400, 20 * n_c3, 20, 10)
+    runs["all"] = c(400, 20 * per_fwd, 20, 10, 20 * n_up)
     return runs
 
 
@@ -590,17 +614,25 @@ def test_family_launch_check_passes_a_good_run(smoke, fam):
     ("classifier_pgd", "fused_adam", 1, "church classifier_pgd: fused_adam launched 1 times"),
 ])
 def test_church_launch_check(smoke, run, kernel, value, expect):
-    """Church's generator has no 32/64-channel conv: a conv3x3 launch
-    anywhere in its phase is a failure, as is any count off the plan's."""
+    """A conv3x3 launch anywhere in a family's phase is a failure (the
+    frozen bf16 synthesis reaches it only through the recomputed
+    composite), as is any count off the plan's."""
     runs = _family_runs("church")
     runs[run] = {**runs[run], kernel: value}
     assert expect in "; ".join(smoke.family_launch_failures("church", _plan(256), runs))
 
 
 @pytest.mark.parametrize("run,kernel,value,expect", [
-    ("pgd_step", "conv3x3_fwd", 0, "car pgd_step: conv3x3_fwd launched 0 times, expected >= 1"),
-    ("spatial_step", "conv3x3_dgrad", 0, "car spatial_step: conv3x3_dgrad launched 0 times"),
-    ("cli", "conv3x3_fwd", 0, "car cli: conv3x3_fwd launched 0 times, expected > 0"),
+    ("pgd_step", "styled_conv_bwd", 7, "car pgd_step: styled_conv_bwd launched 7 times, "
+                                       "expected >= 8"),
+    ("spatial_step", "styled_conv_up_bwd", 0, "car spatial_step: styled_conv_up_bwd launched 0 "
+                                              "times"),
+    ("cli", "styled_conv_bwd", 0, "car cli: styled_conv_bwd launched 0 times, expected > 0"),
+    ("whitebox", "styled_conv_up_bwd", 20, "car whitebox: styled_conv_up_bwd launched 20 times, "
+                                           "expected >= 21"),
+    ("all", "styled_conv_bwd_composite", 1, "car all: styled_conv_bwd_composite launched 1 "
+                                            "times, expected 0"),
+    ("all", "conv3x3_dgrad", 2, "car all: conv3x3_dgrad launched 2 times, expected 0"),
     ("cw", "fused_adam", 2, "car cw: fused_adam launched 2 times, expected 3"),
     ("pgd_step", "styled_conv", 7, "car pgd_step: styled_conv launched 7 times, expected >= 8"),
 ])
@@ -613,7 +645,8 @@ def test_car_launch_check(smoke, run, kernel, value, expect):
 def test_summarize_carries_the_family_runs(smoke):
     """Phase 5h's records under their paths: the kernels timed at the car
     and church shapes carry them under "car" and "church", and each entry
-    has both runs' launches; church's conv3x3 launches are 0."""
+    has both runs' launches; conv3x3's launches are 0 on both (their frozen
+    bf16 syntheses reach it only through the recomputed composite)."""
     records = [_record("styled_conv", "pgd", 1.0), _record("styled_conv", "car", 2.0),
                _record("styled_conv", "church", 0.7),
                _record("conv3x3_fwd", "pgd", 0.2, lib=0.25),
@@ -641,7 +674,7 @@ def test_summarize_carries_the_family_runs(smoke):
     assert conv["car"]["ms"] == pytest.approx(0.6) and conv["car"]["library_ms"] == \
         pytest.approx(1.85)
     assert "church" not in conv and conv["launches_church_path"] == 0
-    assert conv["launches_car_path"] == 40 and conv["launches_per_car_step"] == 4
+    assert conv["launches_car_path"] == 0 and conv["launches_per_car_step"] == 0
     assert by_name["pgd_update"]["car"]["ms"] == 0.02
     assert by_name["pgd_update"]["church"]["ms"] == 0.01
     adam = by_name["fused_adam"]
@@ -821,21 +854,31 @@ STYLED_ROW = "void tf::conv3x3_wgmma_kernel<true, tf::WgTile<16, 16, 2, 1, 4, 32
 CONV_ROW = "void tf::conv3x3_wgmma_kernel<false, tf::WgTile<8, 16, 2, 2, 1, 64, 32, 3, 0, 1>>"
 PGD_ROW = "void tf_stream::stream_reg_kernel<float, 3, 1, (anonymous namespace)::PgdOp<float>, 1>"
 UP_ROW = "void tf::styled_conv_up_wgmma_kernel<tf::WgTile<16, 16, 2, 2, 2, 128, 16, 4, 0, 1>>"
+# the styled backward's K1 (non-up, up) and K2, shared by both
+BWD_ROWS = ("void tf::styled_conv_bwd_wgmma_kernel<false, tf::WgTile<8, 8, 1, 1, 1, 32, 32, 4, "
+            "0, 2>>", "void tf::styled_conv_bwd_wgmma_kernel<true, tf::WgTile<16, 16, 2, 2, 2, "
+            "128, 16, 4, 0, 1>>", "void tf::styled_conv_dgrad_wgmma_kernel<tf::WgTile<8, 16, 2, "
+            "2, 1, 64, 32, 3, 0, 1>>")
 
 
 def test_kernel_counts_read_each_wrappers_kernel(smoke):
     rows = [(STYLED_ROW, 1.0, 9), (CONV_ROW, 0.5, 4), (PGD_ROW, 0.1, 1), (UP_ROW, 1.5, 8),
             ("void at::native::elementwise_kernel<128, 4>", 2.0, 404),
-            ("void tf::sum_partials_kernel", 0.01, 1)]
+            ("void tf::sum_partials_kernel", 0.01, 1), (BWD_ROWS[0], 1.0, 9),
+            (BWD_ROWS[1], 1.2, 8), (BWD_ROWS[2], 1.1, 17)]
     got = smoke.kernel_counts(rows)
     assert got == {"styled_conv": 9, "styled_conv_up": 8, "conv3x3_fwd+dgrad": 4,
-                   "conv3x3_wgrad": 0, "pgd_update": 1, "fused_adam": 0}
+                   "conv3x3_wgrad": 0, "pgd_update": 1, "fused_adam": 0, "styled_conv_bwd": 9,
+                   "styled_conv_up_bwd": 8, "styled_conv_bwd+up_bwd": 17}
     booked = smoke.audited_counts({"styled_conv": 9, "styled_conv_up": 8, "conv3x3_fwd": 2,
                                    "conv3x3_dgrad": 2, "conv3x3_wgrad": 0, "pgd_update": 1,
-                                   "fused_adam": 0})
+                                   "fused_adam": 0, "styled_conv_bwd": 9,
+                                   "styled_conv_up_bwd": 8})
     assert smoke.replay_count_failures("pgd", got, booked) == []
     short = smoke.replay_count_failures("pgd", dict(got, pgd_update=0), booked)
     assert len(short) == 1 and "pgd_update 0" in short[0]
+    short = smoke.replay_count_failures("pgd", dict(got, **{"styled_conv_bwd+up_bwd": 9}), booked)
+    assert len(short) == 1 and "styled_conv_bwd+up_bwd 9" in short[0]
 
 
 @pytest.fixture

@@ -95,14 +95,18 @@ def test_styled_conv_kernel_takes_a_permuted_weight(cuda, dtype):
 
 def test_styled_conv_bf16_autograd(cuda):
     """bf16 on the card: the forward is the kernel, the gradients those of
-    ``styled_conv_reference`` (the backward recomputes it)."""
+    ``styled_conv_reference`` (asked of the weights and bias too, the
+    backward recomputes it: the fallback, counted)."""
     x, w, s, noise, ns, b = _styled_args(cuda, torch.bfloat16, 2, 24, 20, 64, 64)
     ins = [t.clone().requires_grad_(True) for t in (x, w, s, b)]
-    before = launch_counts()["styled_conv"]
+    before = launch_counts()
     y = sc.styled_conv(ins[0], ins[1], ins[2], noise, ns, ins[3])
-    assert launch_counts()["styled_conv"] == before + 1
+    assert launch_counts()["styled_conv"] == before["styled_conv"] + 1
     g = torch.randn(y.shape, generator=cuda, device="cuda").to(y.dtype)
     grads = torch.autograd.grad(y, ins, g)
+    after = launch_counts()
+    assert after["styled_conv_bwd_composite"] == before["styled_conv_bwd_composite"] + 1
+    assert after["styled_conv_bwd"] == before["styled_conv_bwd"]
     refs = [t.clone().requires_grad_(True) for t in (x, w, s, b)]
     y_ref = sc.styled_conv_reference(refs[0], refs[1], refs[2], noise, ns, refs[3])
     _close(y, y_ref, torch.bfloat16)
@@ -134,10 +138,22 @@ def test_styled_conv_up_kernel(cuda, n, h, w, cin, cout):
     assert torch.equal(y, sc.styled_conv_up_kernel(*args))
 
 
+def _off_the_kink(cout):
+    """A bias of +8 and -8 on alternate channels: every pre-activation z
+    lies far from the leaky ReLU's kink (z = c sigma + bias + noise, c sigma
+    about unit-normal), where the gradient jumps by 0.8 g sqrt2 and two
+    roundings of z can fall on either side of 0 (the backward kernels keep z
+    in float32, the bf16 composite rounds it at each op); both slopes run."""
+    return 8.0 * (1 - 2 * (torch.arange(cout, device="cuda") % 2)).float()
+
+
 def test_styled_conv_up_autograd(cuda):
     """On the card the up operator's forward is the kernel (counted), its
-    gradients with respect to x and the style those of the folded composite."""
-    x, w, s, noise, ns, b = _up_args(cuda, 2, 24, 20, 64, 32)
+    gradients with respect to x and the style the backward kernels', held to
+    those of the folded composite (the bias off the activation's kink,
+    ``_off_the_kink``)."""
+    x, w, s, noise, ns, _ = _up_args(cuda, 2, 24, 20, 64, 32)
+    b = _off_the_kink(32)
     ins = [t.clone().requires_grad_(True) for t in (x, s)]
     before = launch_counts()["styled_conv_up"]
     y = sc.styled_conv_up(ins[0], w, ins[1], noise, ns, b)
@@ -148,6 +164,99 @@ def test_styled_conv_up_autograd(cuda):
     _close(y, y_ref, torch.bfloat16)
     for got, want in zip(torch.autograd.grad(y, ins, g), torch.autograd.grad(y_ref, refs, g)):
         _close(got, want, torch.bfloat16)
+
+
+# the styled convs' backward (K1 + K2): every non-up and up conv of FFHQ's
+# 1024^2 and car's 512^2 synthesis (car's planes are FFHQ's up to 512^2, at
+# the same widths) at batch 1 and 5, then the forward tests' ragged shapes
+# that K2 takes (Cin % 32 == 0): (n, h, w, cin, cout, up)
+FFHQ_CONVS = [(4, 512, 512), (8, 512, 512), (16, 512, 512), (32, 512, 512), (64, 512, 512),
+              (128, 256, 256), (256, 128, 128), (512, 64, 64), (1024, 32, 32)]
+FFHQ_UPS = [(4, 512, 512), (8, 512, 512), (16, 512, 512), (32, 512, 512), (64, 512, 256),
+            (128, 256, 128), (256, 128, 64), (512, 64, 32)]
+BWD_CASES = ([(n, r, r, ci, co, False) for n in (1, 5) for r, ci, co in FFHQ_CONVS]
+             + [(n, r, r, ci, co, True) for n in (1, 5) for r, ci, co in FFHQ_UPS]
+             + [(2, 13, 13, 64, 32, False), (2, 40, 40, 32, 64, False),
+                (2, 16, 16, 32, 96, False), (1, 3, 37, 64, 64, False),
+                (3, 70, 90, 128, 256, False), (1, 1, 1, 32, 32, False),
+                (2, 5, 9, 512, 512, False), (30, 50, 2, 128, 128, False),
+                (2, 13, 13, 64, 8, True), (2, 40, 40, 32, 16, True), (3, 70, 90, 128, 64, True),
+                (1, 1, 1, 32, 32, True)])
+
+
+# a synthesis's bias (0.1 randn) puts a few pre-activations within a
+# rounding of the kink: there the twin's and the kernels' gradients part by
+# 0.8 g sqrt2 sigma in gc, spread over a 3x3 x Cin neighbourhood of gx, a
+# relative norm of at most 3e-3 at the cases above (one flip in a 32^2 x 512
+# plane); elsewhere they differ by the order of float32 sums
+KINK_NORM_TOL = 1e-2
+
+
+def _rel_norm(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,up", BWD_CASES)
+def test_styled_conv_backward_kernels(cuda, n, h, w, cin, cout, up):
+    """K1 + K2 against their plain twin and against autograd of the
+    composite (bf16, 3e-2 of max(1, max|want|)) with the bias off the kink
+    (``_off_the_kink``); with a synthesis's bias against the twin in norm
+    (``KINK_NORM_TOL``) and, the twin taking the sign of z from the forward
+    kernel's y (K1's z is the forward's), at 3e-2; two launches give the
+    same bits, and without gx the same gs."""
+    args = _up_args(cuda, n, h, w, cin, cout) if up else _styled_args(
+        cuda, torch.bfloat16, n, h, w, cin, cout)
+    x, w_, s, noise, ns, b = args
+    assert sc.backward_takes_kernels((True, False, True, False, False, False), "cuda",
+                                     x.dtype, x.shape, w_.shape, noise.shape, up)
+    oshape = (n, 2 * h, 2 * w, cout) if up else (n, h, w, cout)
+    g = torch.randn(oshape, generator=cuda, device="cuda").bfloat16()
+    gx, gs = sc.styled_conv_backward_kernel(*args, g, up=up)
+    px, ps = sc.styled_conv_backward_plain(*args, g, up=up)
+    assert _rel_norm(gx, px) <= KINK_NORM_TOL and _rel_norm(gs, ps) <= KINK_NORM_TOL
+    forward = sc.styled_conv_up_kernel if up else sc.styled_conv_kernel
+    px, ps = sc.styled_conv_backward_plain(*args, g, up=up, positive=forward(*args) > 0)
+    _close(gx, px, torch.bfloat16)
+    _close(gs, ps, torch.bfloat16)
+    args = (*args[:5], _off_the_kink(cout))
+    b = args[5]
+    gx, gs = sc.styled_conv_backward_kernel(*args, g, up=up)
+    assert gx.dtype == x.dtype and gs.dtype == torch.float32
+    px, ps = sc.styled_conv_backward_plain(*args, g, up=up)
+    _close(gx, px, torch.bfloat16)
+    _close(gs, ps, torch.bfloat16)
+    refs = [t.clone().requires_grad_(True) for t in (x, s)]
+    ref = sc.styled_conv_up_reference if up else sc.styled_conv_reference
+    y_ref = ref(refs[0], w_, refs[1], noise, ns, b)
+    rx, rs = torch.autograd.grad(y_ref, refs, g)
+    _close(gx, rx, torch.bfloat16)
+    _close(gs, rs, torch.bfloat16)
+    gx2, gs2 = sc.styled_conv_backward_kernel(*args, g, up=up)
+    assert torch.equal(gx, gx2) and torch.equal(gs, gs2)
+    none, gs3 = sc.styled_conv_backward_kernel(*args, g, up=up, need_x=False)
+    assert none is None and torch.equal(gs, gs3)
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_styled_backward_counts_its_kernel_pairs(cuda, up):
+    """Through the operators, gradients of x and the style run the kernel
+    pair (counted, the fallback not), those of the style alone too (the 4^2
+    constant input), and equal the kernels' own."""
+    x, w, s, noise, ns, b = (_up_args(cuda, 2, 12, 10, 64, 32) if up
+                             else _styled_args(cuda, torch.bfloat16, 2, 12, 10, 64, 32))
+    op, key = (sc.styled_conv_up, "styled_conv_up_bwd") if up else (sc.styled_conv,
+                                                                      "styled_conv_bwd")
+    for wrt_x in (True, False):
+        xi, si = x.clone().requires_grad_(wrt_x), s.clone().requires_grad_(True)
+        before = launch_counts()
+        y = op(xi, w, si, noise, ns, b)
+        g = torch.randn(y.shape, generator=cuda, device="cuda").to(y.dtype)
+        grads = torch.autograd.grad(y, (xi, si) if wrt_x else (si,), g)
+        after = launch_counts()
+        assert after[key] == before[key] + 1
+        assert after["styled_conv_bwd_composite"] == before["styled_conv_bwd_composite"]
+        gx, gs = sc.styled_conv_backward_kernel(x, w, s, noise, ns, b, g, up=up)
+        assert torch.equal(grads[-1], gs) and (not wrt_x or torch.equal(grads[0], gx))
 
 
 @pytest.mark.parametrize("size", [64, 256])
@@ -427,6 +536,9 @@ def test_bf16_whitebox_graph_equals_the_eager_loop(deterministic):
     attack = wb.make_per_image_whitebox(p, cfg)
     got = attack(x, t)
     assert [prog.launches["styled_conv_up"] for prog in attack.programs] == [3]
+    # its backward: the kernel pairs of the 4 styled and 3 up convs, no fallback
+    assert [(prog.launches["styled_conv_bwd"], prog.launches["styled_conv_up_bwd"],
+             prog.launches["styled_conv_bwd_composite"]) for prog in attack.programs] == [(4, 3, 0)]
     assert _tree_equal(got, wb.run_eager(p, cfg, x, t, per_image=True))
     attack.programs.release()
 

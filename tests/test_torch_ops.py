@@ -16,7 +16,8 @@ from tests.torch_pipelines import one_torch_thread  # noqa: F401
 from tpufusion.ops import pallas_conv as jpc
 from tpufusion.ops.modconv import modulated_conv2d as j_modconv
 from tpufusion.ops.pgd_update import pgd_update as j_pgd
-from tpufusion.ops.styled_conv import _pallas_styled_conv, styled_conv_reference as j_sc_ref
+from tpufusion.ops.styled_conv import _pallas_styled_conv, noise_bias_act as j_nba
+from tpufusion.ops.styled_conv import styled_conv_reference as j_sc_ref
 from tpufusion.ops.upfirdn2d import (
     blur as j_blur,
     make_blur_kernel as j_kernel,
@@ -115,6 +116,127 @@ def test_folded_up_conv_matches_the_plain_twin(n, h, w, cin, cout):
     assert tuple(outs[0][0].shape) == (n, 2 * h, 2 * w, cout)
     for got, want in zip(*outs):
         assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def _bwd_inputs(n, h, w, cin, cout, up, seed):
+    oh, ow = (2 * h, 2 * w) if up else (h, w)
+    return (_np((n, h, w, cin), seed), _np((3, 3, cin, cout), seed + 1),
+            _np((n, cin), seed + 2, 0.3, 1.0), _np((1, oh, ow, 1), seed + 3), np.float32(0.3),
+            _np((cout,), seed + 4, 0.1), _np((n, oh, ow, cout), seed + 5))
+
+
+def _rel_max(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+# the analytic backward's twin (n, h, w, cin, cout, up): planes not a
+# multiple of any tile, 1^2, Cout 96 (three 32-channel slices), the up
+# conv's Co 8-24 (an 8-channel part or a block holding several phases)
+BWD_TWIN_CASES = [(2, 8, 8, 32, 64, False), (1, 5, 7, 64, 32, False), (2, 3, 9, 32, 96, False),
+                  (1, 1, 1, 32, 32, False), (2, 4, 4, 32, 8, True), (1, 5, 3, 64, 16, True),
+                  (2, 6, 5, 32, 24, True), (1, 1, 1, 32, 32, True)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,up", BWD_TWIN_CASES)
+def test_backward_twin_matches_autograd_of_the_composite(n, h, w, cin, cout, up):
+    """``styled_conv_backward_plain`` (what the backward kernels compute) in
+    float32 against autograd of the composite, ``styled_conv_reference``
+    and, for the up conv, the unfolded ``styled_conv_up_plain``: gx and gs
+    within 1e-5 of each one's largest entry; with x needing no gradient (the
+    4^2 constant input) the composite's gs alone is the same."""
+    x, wt, s, noise, ns, b, g = map(_t, _bwd_inputs(n, h, w, cin, cout, up, 80))
+    ref = sc.styled_conv_up_plain if up else sc.styled_conv_reference
+    xa, sa = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    want = torch.autograd.grad(ref(xa, wt, sa, noise, ns, b), (xa, sa), g)
+    got = sc.styled_conv_backward_plain(x, wt, s, noise, ns, b, g, up=up)
+    assert got[0].dtype == x.dtype and got[1].dtype == s.dtype
+    for a, e in zip(got, want):
+        assert _rel_max(a, e) <= 1e-5
+    sa = s.clone().requires_grad_(True)
+    (gs,) = torch.autograd.grad(ref(x, wt, sa, noise, ns, b), (sa,), g)
+    assert _rel_max(got[1], gs) <= 1e-5
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_backward_twin_matches_jax(up):
+    """The twin against JAX's vjp of its composite (the up conv: JAX's
+    transposed conv and blur) on a 32^2 output plane, 2e-4 of each
+    gradient's largest entry."""
+    h = 16 if up else 32
+    x, wt, s, noise, ns, b, g = _bwd_inputs(2, h, h, 32, 32, up, 90)
+    consts = tuple(map(jnp.asarray, (wt, noise, ns, b)))
+
+    def composite(a, c):
+        wj, nj, nsj, bj = consts
+        if not up:
+            return j_sc_ref(a, wj, c, nj, nsj, bj)
+        return j_nba(j_modconv(a, wj, c, demodulate=True, up=True), nj, nsj, bj)
+    _, vjp = jax.vjp(composite, jnp.asarray(x), jnp.asarray(s))
+    want = vjp(jnp.asarray(g))
+    got = sc.styled_conv_backward_plain(*map(_t, (x, wt, s, noise, ns, b, g)), up=up)
+    for a, e in zip(got, want):
+        assert _rel_max(a.numpy(), e) <= 2e-4
+
+
+@pytest.mark.parametrize("up", [False, True])
+def test_backward_twin_takes_the_given_sign_of_z(up):
+    """``positive`` stands in for z > 0, and z enters the twin nowhere else:
+    the composite's own y > 0 gives the twin's numbers, and z > 0 everywhere
+    gives those of a bias that puts every z above 0 (float64)."""
+    x, wt, s, noise, ns, b, g = (_t(a).double() for a in _bwd_inputs(2, 5, 6, 32, 16, up, 97))
+    ref = sc.styled_conv_up_reference if up else sc.styled_conv_reference
+    own = sc.styled_conv_backward_plain(x, wt, s, noise, ns, b, g, up=up)
+    y = ref(x, wt, s, noise, ns, b)
+    for a, e in zip(sc.styled_conv_backward_plain(x, wt, s, noise, ns, b, g, up=up,
+                                                  positive=y > 0), own):
+        assert torch.equal(a, e)
+    high = sc.styled_conv_backward_plain(x, wt, s, noise, ns, b + 1e4, g, up=up)
+    for a, e in zip(sc.styled_conv_backward_plain(x, wt, s, noise, ns, b, g, up=up,
+                                                  positive=torch.ones_like(y, dtype=bool)), high):
+        assert torch.equal(a, e) and not torch.equal(a, own[0 if a.dim() == 4 else 1])
+
+
+def test_backward_routing():
+    """``backward_takes_kernels``: the two kernels for bf16 CUDA tensors of
+    the forward kernels' shapes with Cin % 32 == 0, asked for the gradient
+    of x and the style, or of the style alone; the recomputed composite for
+    the CPU, float32, K2's shapes (the up tests' Cin 16 and 48), per-sample
+    noise, and any gradient of the weights, noise, its strength or bias."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    xs = (True, False, True, False, False, False)
+    conv = ((5, 1024, 1024, 32), (3, 3, 32, 32), (1, 1024, 1024, 1), False)
+    up = ((5, 512, 512, 64), (3, 3, 64, 32), (1, 1024, 1024, 1), True)
+    for shapes in (conv, up, ((1, 4, 4, 512), (3, 3, 512, 512), (1, 4, 4, 1), False),
+                   ((2, 13, 13, 64), (3, 3, 64, 8), (1, 26, 26, 1), True)):
+        assert sc.backward_takes_kernels(xs, "cuda", bf16, *shapes)
+        assert sc.backward_takes_kernels((False, *xs[1:]), "cuda", bf16, *shapes)
+        assert not sc.backward_takes_kernels(xs, "cpu", bf16, *shapes)
+        assert not sc.backward_takes_kernels(xs, "cuda", f32, *shapes)
+        for i in (1, 3, 4, 5):
+            need = tuple(v or j == i for j, v in enumerate(xs))
+            assert not sc.backward_takes_kernels(need, "cuda", bf16, *shapes)
+    for shapes in (((2, 33, 17, 16), (3, 3, 16, 24), (1, 66, 34, 1), True),
+                   ((4, 30, 20, 48), (3, 3, 48, 48), (1, 60, 40, 1), True),
+                   ((1, 9, 21, 48), (3, 3, 48, 128), (1, 9, 21, 1), False),
+                   ((2, 8, 8, 32), (3, 3, 32, 32), (2, 8, 8, 1), False),
+                   ((2, 4, 4, 32), (3, 3, 32, 32), (2, 8, 8, 1), True)):
+        assert not sc.backward_takes_kernels(xs, "cuda", bf16, *shapes)
+
+
+def test_cpu_backward_recomputes_the_composite_uncounted():
+    """On the CPU the operators' backward is autograd of the composite (the
+    numbers the port gave before the kernels), counted nowhere: the CPU
+    launches no kernel and the fallback count is the card's."""
+    x, wt, s, noise, ns, b, g = (_t(a) for a in _bwd_inputs(1, 4, 4, 32, 32, False, 95))
+    x, g = x.bfloat16(), g.bfloat16()
+    ops.reset_launch_counts()
+    xa, sa = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    got = torch.autograd.grad(sc.styled_conv(xa, wt, sa, noise, ns, b), (xa, sa), g)
+    xr, sr = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    want = torch.autograd.grad(sc.styled_conv_reference(xr, wt, sr, noise, ns, b), (xr, sr), g)
+    assert all(torch.equal(a, e) for a, e in zip(got, want))
+    assert set(ops.launch_counts().values()) == {0}
 
 
 @pytest.fixture
@@ -356,6 +478,37 @@ def test_styled_conv_kernel_refuses_before_any_build(no_build, case):
     assert no_build == []
 
 
+BWD_REFUSED = {
+    "cpu": ({}, ValueError, "must be a CUDA tensor"),
+    "float32": ({"x": _planes(2, 8, 8, 32), "g": _planes(2, 8, 8, 32)}, ValueError,
+                "unsupported shapes or dtype"),
+    "cin not a multiple of 32": ({"x": _planes(2, 8, 8, 16, dtype=torch.bfloat16),
+                                  "weight": _planes(3, 3, 16, 32), "style": _planes(2, 16)},
+                                 ValueError, "unsupported shapes"),
+    "per-sample noise": ({"noise": _planes(2, 8, 8, 1)}, ValueError, "unsupported shapes"),
+    "g at the wrong plane": ({"g": _planes(2, 16, 16, 32, dtype=torch.bfloat16)}, ValueError,
+                             "must be a contiguous"),
+    "float32 g": ({"g": _planes(2, 8, 8, 32)}, ValueError, "must be a contiguous"),
+    "style": ({"style": _planes(2, 16)}, ValueError, "do not match x and w"),
+}
+
+
+@pytest.mark.parametrize("case", list(BWD_REFUSED))
+def test_styled_conv_backward_kernel_refuses_before_any_build(no_build, case):
+    """``styled_conv_backward_kernel`` raises on tensors off the card,
+    float32, a Cin K2 does not take, per-sample noise, a g that does not
+    match y and a style that does not match x before it builds, loads or
+    launches anything."""
+    change, exc, msg = BWD_REFUSED[case]
+    bf16 = torch.bfloat16
+    args = dict(x=_planes(2, 8, 8, 32, dtype=bf16), weight=_planes(3, 3, 32, 32),
+                style=_planes(2, 32), noise=_planes(1, 8, 8, 1), noise_strength=_planes(),
+                bias=_planes(32), g=_planes(2, 8, 8, 32, dtype=bf16))
+    with pytest.raises(exc, match=msg):
+        sc.styled_conv_backward_kernel(**{**args, **change})
+    assert no_build == []
+
+
 UP_REFUSED = {
     "cpu": ({}, ValueError, "must be a CUDA tensor"),
     "float32": ({"x": _planes(2, 8, 8, 32)}, ValueError, "unsupported shapes or dtype"),
@@ -411,21 +564,21 @@ def test_conv3x3_weight_grad_kernel_refuses_before_any_build(no_build, case):
 
 def _header_classes():
     """``{name: (code, WgTile arguments)}`` from csrc/conv3x3_wgmma.cuh: the
-    ``using Wg<Name> = WgTile<...>`` lines and the cases of
-    ``launch_conv3x3_wgmma``."""
+    ``using Wg<Name> = WgTile<...>`` lines and the cases of ``with_class``,
+    which every bf16 conv launch goes through."""
     import re
     text = (_lib.CSRC / "conv3x3_wgmma.cuh").read_text()
     tiles = {m.group(1).lower(): tuple(int(a) if a.strip().lstrip("-").isdigit()
                                        else a.strip() == "true" for a in m.group(2).split(","))
              for m in re.finditer(r"using Wg(\w+) = WgTile<([^>]*)>;", text)}
     codes = {m.group(2).lower(): int(m.group(1))
-             for m in re.finditer(r"case (\d+):\s*return launch_wgmma<STYLED, Wg(\w+)>", text)}
+             for m in re.finditer(r"case (\d+):\s*return f\(Wg(\w+)\{\}\)", text)}
     return {name: (codes[name], args) for name, args in tiles.items()}
 
 
 def test_mma_classes_mirror_the_header():
     """``MMA_CLASSES`` holds the header's tile classes, field for field, under
-    the codes ``launch_conv3x3_wgmma`` switches on."""
+    the codes ``with_class`` switches on."""
     header = _header_classes()
     assert set(header) == {cls.name for cls in c3.MMA_CLASSES}
     for cls in c3.MMA_CLASSES:

@@ -115,7 +115,8 @@ def test_launch_counts_live_in_the_counter_table(monkeypatch):
     launches stubbed, count in ``trace.LAUNCHES``; ``ops`` reads, resets and
     adds to it as it read the wrappers' own counts."""
     keys = ["styled_conv", "styled_conv_up", "conv3x3_fwd", "conv3x3_dgrad", "conv3x3_wgrad",
-            "pgd_update", "fused_adam"]
+            "pgd_update", "fused_adam", "styled_conv_bwd", "styled_conv_up_bwd",
+            "styled_conv_bwd_composite"]
     saved = ops.launch_counts()
     assert list(saved) == keys and list(trace.LAUNCHES) == keys
     try:
@@ -137,7 +138,8 @@ def test_launch_counts_live_in_the_counter_table(monkeypatch):
         torch.autograd.grad(c3.conv3x3(xc, wc).sum(), (xc, wc))
         assert ops.launch_counts() == dict(styled_conv=0, styled_conv_up=0, conv3x3_fwd=1,
                                            conv3x3_dgrad=1, conv3x3_wgrad=1, pgd_update=1,
-                                           fused_adam=1)
+                                           fused_adam=1, styled_conv_bwd=0, styled_conv_up_bwd=0,
+                                           styled_conv_bwd_composite=0)
         ops.add_launch_counts(dict(styled_conv=9, fused_adam=2))
         ops.add_launch_counts(dict(fused_adam=-1))
         got = ops.launch_counts()

@@ -31,8 +31,12 @@ import functools
 import torch
 from torch.autograd import profiler as _profiler
 
+# styled_conv_bwd / styled_conv_up_bwd count the backward's kernel pairs;
+# styled_conv_bwd_composite each backward on the card that recomputes the
+# composite instead (ops/styled_conv.py::backward_takes)
 LAUNCHES = dict.fromkeys(("styled_conv", "styled_conv_up", "conv3x3_fwd", "conv3x3_dgrad",
-                          "conv3x3_wgrad", "pgd_update", "fused_adam"), 0)
+                          "conv3x3_wgrad", "pgd_update", "fused_adam", "styled_conv_bwd",
+                          "styled_conv_up_bwd", "styled_conv_bwd_composite"), 0)
 _OFF = contextlib.nullcontext()
 
 

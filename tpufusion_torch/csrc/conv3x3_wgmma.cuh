@@ -339,8 +339,226 @@ constexpr size_t MMA_SMEM_MAX = 232448;  // sm_90: 227 KB of dynamic shared memo
 // the styled up conv's (EPI_UP: Cout = 4 Co phase-major channels, phase
 // p = 2 a + b of channel co stored at output pixel (2 h + a, 2 w + b) of
 // y (N, 2H, 2W, Co); sigma (N, Co), bias (Co); noise (H, W, 4), the
-// pre-scaled noise of each input pixel's four output pixels).
-constexpr int EPI_NONE = 0, EPI_STYLED = 1, EPI_UP = 2;
+// pre-scaled noise of each input pixel's four output pixels). The styled
+// convs' backward (styled_conv.cu's source note): EPI_BWD and EPI_UP_BWD
+// (K1) run the forward's modulated conv and read aux = g = dL/dy where the
+// forward would store y; EPI_DGRAD (K2) runs the plain conv of gc on the
+// flipped weights and reads aux = x at the output pixel. Both store y (gc,
+// gx) at the conv's own NHWC place and write float32 partial sums over each
+// tile's pixels, one row of Cout a consumer warp: partial[(tile * 4 TEAM_WGS
+// + warp of the team) * Cout + co].
+constexpr int EPI_NONE = 0, EPI_STYLED = 1, EPI_UP = 2, EPI_BWD = 3, EPI_UP_BWD = 4, EPI_DGRAD = 5;
+constexpr float SQRT2 = 1.4142135623730951f;
+
+// The backward epilogues of the body below, on one consumer warp's MT m64
+// tiles of the tile at (n, h0, w0), Cout slice co0: for each 16-row group,
+// the warp stages aux's rows at this slice's channels in its staging rows
+// (stage_rows; the first group's while the mainloop runs), reads them back in the
+// accumulators' layout by ldmatrix, forms its outputs and their partial
+// sums' terms in float32, rounds the outputs once, and stores them as the
+// forward stores y at the conv's own NHWC place (y null: K2 without gx).
+// BWD (K1): aux = g at the place the forward would store y (UP: the
+// depth-to-space place); z = c sigma + bias + noise, gz = g sqrt2 (z > 0 ? 1 :
+// 0.2); y = bf16(gz sigma); terms gz c. DGRAD (K2): aux = x; y = bf16(acc
+// bf16(s)); terms acc x. The terms replace the accumulators they
+// came from, then are summed over the warp's rows in a fixed order (its
+// tiles, rows g and g + 8, then the 8 lanes of each channel pair by
+// butterfly) into its partial row: no atomics, the same bits every launch.
+// 16 bytes global -> shared by cp.async (bypassing L1); src_bytes 0 fills
+// zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Loads that stay where they are written (volatile): the backward
+// epilogue's sigma, bias, style and noise, read at each use. As plain loads
+// of read-only memory the compiler hoists them over the mainloop and holds
+// them there, and the mainloop of the one-block-a-SM classes then spills.
+__device__ __forceinline__ float ld_here(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float2 ld_here2(const float* p) {
+  float2 v;
+  asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float4 ld_here4(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// A backward epilogue's input rows: aux's 16 rows of 16-row group grp of
+// the tile at (n, h0, w0), at the Cout slice co0's channels, into the warp's
+// staging rows `rows` by cp.async (zero outside the plane); K1 reads g where
+// the forward would store y (UP: the depth-to-space place), K2 reads x.
+template <bool UP, class C>
+__device__ __forceinline__ void stage_rows(const __nv_bfloat16* __restrict__ aux, uint32_t rows,
+                                           int grp, int n, int h0, int w0, int H, int W, int Cout,
+                                           int co0) {
+  const int lane = threadIdx.x & 31;
+  const int Co = UP ? Cout / 4 : Cout;
+  constexpr int CH = C::BN / 8;  // 16-byte parts of a row
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, part = i % CH;
+    const int m = grp * 16 + r;
+    const int oh = h0 + m / C::TW, ow = w0 + m % C::TW;
+    const bool in = oh < H && ow < W;
+    const __nv_bfloat16* src = aux;
+    if (in) {
+      if (UP) {
+        const int ph = (co0 + part * 8) / Co;
+        src = aux + (((size_t)n * 2 * H + 2 * oh + (ph >> 1)) * 2 * W + 2 * ow + (ph & 1)) * Co +
+              co0 + part * 8 - ph * Co;
+      } else {
+        src = aux + (((size_t)n * H + oh) * W + ow) * Cout + co0 + part * 8;
+      }
+    }
+    cp_async16(rows + r * C::OUT_PITCH + part * 16, src, in ? 16 : 0);
+  }
+}
+
+template <bool UP, bool BWD, class C>
+__device__ __forceinline__ void backward_epilogue(
+    float (&acc)[C::MT][C::BN / 2], const float* __restrict__ style,
+    const float* __restrict__ sigma, const float* __restrict__ bias,
+    const float* __restrict__ noise, const __nv_bfloat16* __restrict__ aux,
+    __nv_bfloat16* __restrict__ y, float* __restrict__ partial, int tile, int slot,
+    unsigned char* smem, uint32_t base, uint32_t o_off, int g0, int n, int h0, int w0, int H,
+    int W, int Cout, int co0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3, mi = lane >> 3;
+  const int Co = UP ? Cout / 4 : Cout;
+  constexpr int CH = C::BN / 8;  // 16-byte parts of a row
+  // UP: each n8 block's phase in two bits (Co % 8 == 0: a block lies in one phase)
+  uint32_t phs = 0;
+  if (UP) {
+#pragma unroll
+    for (int nb = 0; nb < CH; ++nb) phs |= (uint32_t)((co0 + nb * 8) / Co) << (2 * nb);
+  }
+#pragma unroll
+  for (int t = 0; t < C::MT; ++t) {
+    const int grp = g0 + t;
+    // BWD: the pre-scaled noise of this lane's rows g and g + 8 (UP: their
+    // four output pixels)
+    float nz[2][UP ? 4 : 1];
+    if (BWD) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = grp * 16 + g + 8 * h;
+        const int oh = h0 + m / C::TW, ow = w0 + m % C::TW;
+        const bool in = oh < H && ow < W;
+        if constexpr (UP) {
+          const float4 v = in ? ld_here4(noise + ((size_t)oh * W + ow) * 4)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          nz[h][0] = v.x;
+          nz[h][1] = v.y;
+          nz[h][2] = v.z;
+          nz[h][3] = v.w;
+        } else {
+          nz[h][0] = in ? ld_here(noise + (size_t)oh * W + ow) : 0.f;
+        }
+      }
+    }
+    // group 0's rows were staged as the tile's mainloop began
+    if (t > 0) stage_rows<UP, C>(aux, base + o_off, grp, n, h0, w0, H, W, Cout, co0);
+    cp_async_wait_all();
+    __syncwarp();
+#pragma unroll
+    for (int nb2 = 0; nb2 < C::BN / 16; ++nb2) {
+      // matrices: rows 0-7 / 8-15 of n8 block 2 nb2, then of 2 nb2 + 1
+      const uint32_t rows =
+          base + o_off + ((mi & 1) * 8 + (lane & 7)) * C::OUT_PITCH + (2 * nb2 + (mi >> 1)) * 16;
+      uint32_t a[4], p[4];
+      ldsm_x4(a, rows);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int nb = 2 * nb2 + q;
+        // this lane's channel pair: BWD sigma and bias (UP: of channel c %
+        // Co), DGRAD bf16(s), as the forward modulates; read here, not held
+        // across the epilogue, so that the accumulators keep the registers
+        int co = co0 + nb * 8 + 2 * t4;
+        const uint32_t ph = UP ? (phs >> (2 * nb)) & 3 : 0;
+        co -= ph * Co;
+        float2 sg, bs;
+        if constexpr (BWD) {
+          sg = ld_here2(sigma + (size_t)n * Co + co);
+          bs = ld_here2(bias + co);
+        } else {
+          const float2 v = ld_here2(style + (size_t)n * Cout + co);
+          sg = __bfloat1622float2(__floats2bfloat162_rn(v.x, v.y));
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i0 = 4 * nb + 2 * h;
+          const float2 av = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[2 * q + h]));
+          const float v0 = acc[t][i0], v1 = acc[t][i0 + 1];
+          float o0, o1;
+          if constexpr (BWD) {
+            float zn = nz[h][0];
+            if constexpr (UP) zn = ph == 0 ? zn : ph == 1 ? nz[h][1] : ph == 2 ? nz[h][2] : nz[h][3];
+            const float z0 = v0 * sg.x + bs.x + zn, z1 = v1 * sg.y + bs.y + zn;
+            const float gz0 = av.x * (z0 > 0.f ? SQRT2 : 0.2f * SQRT2);
+            const float gz1 = av.y * (z1 > 0.f ? SQRT2 : 0.2f * SQRT2);
+            acc[t][i0] = gz0 * v0;
+            acc[t][i0 + 1] = gz1 * v1;
+            o0 = gz0 * sg.x;
+            o1 = gz1 * sg.y;
+          } else {
+            acc[t][i0] = v0 * av.x;
+            acc[t][i0 + 1] = v1 * av.y;
+            o0 = v0 * sg.x;
+            o1 = v1 * sg.y;
+          }
+          p[2 * q + h] = bf16x2_bits(__floats2bfloat162_rn(o0, o1));
+        }
+      }
+      __syncwarp();  // every lane's ldmatrix of these rows is done
+      stsm_x4(rows, p[0], p[1], p[2], p[3]);
+    }
+    __syncwarp();
+    if (y != nullptr) {
+#pragma unroll
+      for (int i = lane; i < 16 * CH; i += 32) {
+        const int r = i / CH, part = i % CH;
+        const int m = grp * 16 + r;
+        const int oh = h0 + m / C::TW, ow = w0 + m % C::TW;
+        if (oh < H && ow < W)
+          *reinterpret_cast<uint4*>(y + (((size_t)n * H + oh) * W + ow) * Cout + co0 + part * 8) =
+              *reinterpret_cast<const uint4*>(smem + o_off + r * C::OUT_PITCH + part * 16);
+      }
+    }
+    __syncwarp();
+  }
+  float* dst = partial + ((size_t)tile * 4 * C::TEAM_WGS + slot) * Cout + co0 + 2 * t4;
+#pragma unroll
+  for (int nb = 0; nb < C::BN / 8; ++nb) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int t = 0; t < C::MT; ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s0 += acc[t][4 * nb + 2 * h];
+        s1 += acc[t][4 * nb + 2 * h + 1];
+      }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    if (g == 0) *reinterpret_cast<float2*>(dst + nb * 8) = make_float2(s0, s1);
+  }
+}
 
 // y = conv3x3(x [* s]) [epilogue], bf16 in and out. x arrives as the tensor
 // map `xmap` (NHWC, box (CK, TW + 2, TH + 2, 1)); wpk is the packed weights
@@ -353,8 +571,13 @@ __device__ __forceinline__ void conv3x3_wgmma_body(
     const CUtensorMap& xmap, const __nv_bfloat16* __restrict__ wpk,
     __nv_bfloat16* __restrict__ y, const float* __restrict__ style,
     const float* __restrict__ sigma, const float* __restrict__ bias,
-    const float* __restrict__ noise, int N, int H, int W, int Cin, int Cout) {
-  constexpr bool STYLED = EPI != EPI_NONE, UP = EPI == EPI_UP;
+    const float* __restrict__ noise, const __nv_bfloat16* __restrict__ aux,
+    float* __restrict__ partial, int N, int H, int W, int Cin, int Cout) {
+  // STYLED: the mainloop modulates x by the style; UP: channels are phases
+  // at depth-to-space places; BWD: K1's epilogue; DGRAD: K2's
+  constexpr bool STYLED = EPI != EPI_NONE && EPI != EPI_DGRAD;
+  constexpr bool UP = EPI == EPI_UP || EPI == EPI_UP_BWD;
+  constexpr bool BWD = EPI == EPI_BWD || EPI == EPI_UP_BWD, DGRAD = EPI == EPI_DGRAD;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -457,6 +680,9 @@ __device__ __forceinline__ void conv3x3_wgmma_body(
       for (int i = 0; i < C::BN / 2; ++i) acc[t][i] = 0.f;
       fence_regs(acc[t]);
     }
+    if constexpr (BWD || DGRAD)  // the backward epilogue's first rows, staged under the mainloop
+      stage_rows<UP, C>(aux, base + out_off + warp * 16 * C::OUT_PITCH, g0, n, h0, w0, H, W, Cout,
+                        co0);
     int pending = -1;  // the slot to give back once its wgmmas are done
     for (int c = 0; c < nchunks; ++c) {
       const int s = j * nchunks + c;
@@ -527,9 +753,15 @@ __device__ __forceinline__ void conv3x3_wgmma_body(
     for (int t = 0; t < C::MT; ++t) fence_regs(acc[t]);
     mbar_arrive(empty(pending));
 
+    const uint32_t o_off = out_off + warp * 16 * C::OUT_PITCH;  // this warp's staging rows
+    if constexpr (BWD || DGRAD) {
+      backward_epilogue<UP, BWD, C>(acc, style, sigma, bias, noise, aux, y, partial,
+                                    blockIdx.x + j * gridDim.x, (wg % C::TEAM_WGS) * 4 + wl, smem,
+                                    base, o_off, g0, n, h0, w0, H, W, Cout, co0);
+      continue;
+    }
     // epilogue: float32 -> (STYLED: sigma, bias, noise, lrelu * sqrt2) ->
     // bf16, stmatrix into this warp's staging rows, 16-byte NHWC stores
-    const uint32_t o_off = out_off + warp * 16 * C::OUT_PITCH;
     const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3;
     // this lane's sigma and bias pairs (channels co0 + 8 nb + 2 t4, + 1) and
     // the noise of its rows, all loaded before the first use. UP: channel c
@@ -592,8 +824,8 @@ __device__ __forceinline__ void conv3x3_wgmma_body(
               }
               v0 = v0 * sg[nb].x + bs[nb].x + z;
               v1 = v1 * sg[nb].y + bs[nb].y + z;
-              v0 = (v0 >= 0.f ? v0 : 0.2f * v0) * 1.4142135623730951f;
-              v1 = (v1 >= 0.f ? v1 : 0.2f * v1) * 1.4142135623730951f;
+              v0 = (v0 >= 0.f ? v0 : 0.2f * v0) * SQRT2;
+              v1 = (v1 >= 0.f ? v1 : 0.2f * v1) * SQRT2;
             }
             p[2 * q + h] = bf16x2_bits(__floats2bfloat162_rn(v0, v1));
           }
@@ -636,7 +868,7 @@ conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                      const float* __restrict__ bias, const float* __restrict__ noise, int N,
                      int H, int W, int Cin, int Cout) {
   conv3x3_wgmma_body<STYLED ? EPI_STYLED : EPI_NONE, C>(xmap, wpk, y, style, sigma, bias, noise,
-                                                        N, H, W, Cin, Cout);
+                                                        nullptr, nullptr, N, H, W, Cin, Cout);
 }
 
 // the styled up conv: the phase conv (Cout = 4 Co) with EPI_UP's epilogue
@@ -648,7 +880,38 @@ styled_conv_up_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                             const float* __restrict__ sigma, const float* __restrict__ bias,
                             const float* __restrict__ noise, int N, int H, int W, int Cin,
                             int Cout) {
-  conv3x3_wgmma_body<EPI_UP, C>(xmap, wpk, y, style, sigma, bias, noise, N, H, W, Cin, Cout);
+  conv3x3_wgmma_body<EPI_UP, C>(xmap, wpk, y, style, sigma, bias, noise, nullptr, nullptr, N, H,
+                                W, Cin, Cout);
+}
+
+// the styled convs' backward, K1: the forward's conv of x (UP: the phase
+// conv, Cout = 4 Co), g read in the epilogue, gc (N, H, W, Cout) and the
+// partials of dL/dsigma written
+template <bool UP, class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+styled_conv_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __nv_bfloat16* __restrict__ wpk,
+                             __nv_bfloat16* __restrict__ gc, const float* __restrict__ style,
+                             const float* __restrict__ sigma, const float* __restrict__ bias,
+                             const float* __restrict__ noise, const __nv_bfloat16* __restrict__ g,
+                             float* __restrict__ partial, int N, int H, int W, int Cin,
+                             int Cout) {
+  conv3x3_wgmma_body<UP ? EPI_UP_BWD : EPI_BWD, C>(xmap, wpk, gc, style, sigma, bias, noise, g,
+                                                   partial, N, H, W, Cin, Cout);
+}
+
+// the styled convs' backward, K2: the conv of gc (xmap, Cin channels) on the
+// flipped, channel-transposed weights to Cout = the forward's Cin, x read in
+// the epilogue, gx (null: not stored) and the partials of sum_hw gxs x
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+styled_conv_dgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                               const __nv_bfloat16* __restrict__ wpk,
+                               __nv_bfloat16* __restrict__ gx, const float* __restrict__ style,
+                               const __nv_bfloat16* __restrict__ x, float* __restrict__ partial,
+                               int N, int H, int W, int Cin, int Cout) {
+  conv3x3_wgmma_body<EPI_DGRAD, C>(xmap, wpk, gx, style, nullptr, nullptr, nullptr, x, partial, N,
+                                   H, W, Cin, Cout);
 }
 
 // ---- host side ---------------------------------------------------------------
@@ -697,10 +960,13 @@ inline int encode_x_map(CUtensorMap* map, const void* x, int N, int H, int W, in
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 
-template <bool STYLED, class C, int EPI = STYLED ? EPI_STYLED : EPI_NONE>
-int launch_wgmma(const void* x, const void* wpk, void* y, const float* style, const float* sigma,
-                 const float* bias, const float* noise, int N, int H, int W, int Cin, int Cout,
-                 cudaStream_t stream) {
+// One launch of the kernel of epilogue EPI in tile class C on x (N, H, W,
+// Cin) -> (..., Cout): the checks, x's tensor map, the kernel's attributes
+// (once) and a persistent grid over the M tiles of each Cout slice. `args`
+// are the kernel's arguments between the tensor map and the shapes.
+template <int EPI, class C, class... Args>
+int launch_wgmma(const void* x, int N, int H, int W, int Cin, int Cout, cudaStream_t stream,
+                 Args... args) {
   const int nchunks = (Cin + C::CK - 1) / C::CK;
   const size_t smem = C::smem_bytes(nchunks);
   if (Cout % C::BN != 0 || Cin % 16 != 0 || smem > MMA_SMEM_MAX) return (int)cudaErrorInvalidValue;
@@ -710,8 +976,12 @@ int launch_wgmma(const void* x, const void* wpk, void* y, const float* style, co
   auto kern = [] {
     if constexpr (EPI == EPI_UP)
       return styled_conv_up_wgmma_kernel<C>;
+    else if constexpr (EPI == EPI_BWD || EPI == EPI_UP_BWD)
+      return styled_conv_bwd_wgmma_kernel<EPI == EPI_UP_BWD, C>;
+    else if constexpr (EPI == EPI_DGRAD)
+      return styled_conv_dgrad_wgmma_kernel<C>;
     else
-      return conv3x3_wgmma_kernel<STYLED, C>;
+      return conv3x3_wgmma_kernel<EPI == EPI_STYLED, C>;
   }();
   static int regs_ok = -1;  // the launch gives each thread what setmaxnreg redistributes
   if (regs_ok < 0) {
@@ -757,11 +1027,31 @@ int launch_wgmma(const void* x, const void* wpk, void* y, const float* style, co
   const int m_tiles = N * ((H + C::TH - 1) / C::TH) * ((W + C::TW - 1) / C::TW);
   int gx = per_sm * sms / n_tiles;
   gx = gx < 1 ? 1 : (gx > m_tiles ? m_tiles : gx);
-  kern<<<dim3(gx, n_tiles), C::THREADS, smem, stream>>>(
-      map, static_cast<const __nv_bfloat16*>(wpk), static_cast<__nv_bfloat16*>(y), style, sigma,
-      bias, noise, N, H, W, Cin, Cout);
+  kern<<<dim3(gx, n_tiles), C::THREADS, smem, stream>>>(map, args..., N, H, W, Cin, Cout);
   return (int)cudaGetLastError();
 }
+
+// f(C{}) for the tile class C of code `cls` (ops/conv3x3.py::MMA_CLASSES)
+template <class F>
+int with_class(int cls, F&& f) {
+  switch (cls) {
+    case 0:
+      return f(WgNarrow32{});
+    case 1:
+      return f(WgNarrow64{});
+    case 2:
+      return f(WgWide{});
+    case 3:
+      return f(WgMid{});
+    case 4:
+      return f(WgSmall{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+typedef const __nv_bfloat16* BfIn;
+typedef __nv_bfloat16* BfOut;
 
 // The bf16 forward with the tile class `cls` that ops/conv3x3.py::mma_class
 // picked (its codes: MMA_CLASSES); wpk packed for that class.
@@ -769,25 +1059,11 @@ template <bool STYLED>
 int launch_conv3x3_wgmma(int cls, const void* x, const void* wpk, void* y, const float* style,
                          const float* sigma, const float* bias, const float* noise, int N, int H,
                          int W, int Cin, int Cout, cudaStream_t stream) {
-  switch (cls) {
-    case 0:
-      return launch_wgmma<STYLED, WgNarrow32>(x, wpk, y, style, sigma, bias, noise, N, H, W, Cin,
-                                              Cout, stream);
-    case 1:
-      return launch_wgmma<STYLED, WgNarrow64>(x, wpk, y, style, sigma, bias, noise, N, H, W, Cin,
-                                              Cout, stream);
-    case 2:
-      return launch_wgmma<STYLED, WgWide>(x, wpk, y, style, sigma, bias, noise, N, H, W, Cin,
-                                          Cout, stream);
-    case 3:
-      return launch_wgmma<STYLED, WgMid>(x, wpk, y, style, sigma, bias, noise, N, H, W, Cin, Cout,
-                                         stream);
-    case 4:
-      return launch_wgmma<STYLED, WgSmall>(x, wpk, y, style, sigma, bias, noise, N, H, W, Cin,
-                                           Cout, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_class(cls, [&](auto c) {
+    return launch_wgmma<STYLED ? EPI_STYLED : EPI_NONE, decltype(c)>(
+        x, N, H, W, Cin, Cout, stream, static_cast<BfIn>(wpk), static_cast<BfOut>(y), style,
+        sigma, bias, noise);
+  });
 }
 
 // The styled up conv: x (N, H, W, Cin) -> y (N, 2H, 2W, Co), the phase conv
@@ -798,25 +1074,11 @@ inline int launch_styled_conv_up_wgmma(int cls, const void* x, const void* wpk, 
                                        const float* bias, const float* noise, int N, int H,
                                        int W, int Cin, int Co, cudaStream_t stream) {
   if (Co % 8 != 0) return (int)cudaErrorInvalidValue;
-  switch (cls) {
-    case 0:
-      return launch_wgmma<true, WgNarrow32, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H,
-                                                    W, Cin, 4 * Co, stream);
-    case 1:
-      return launch_wgmma<true, WgNarrow64, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H,
-                                                    W, Cin, 4 * Co, stream);
-    case 2:
-      return launch_wgmma<true, WgWide, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H, W,
-                                                Cin, 4 * Co, stream);
-    case 3:
-      return launch_wgmma<true, WgMid, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H, W,
-                                               Cin, 4 * Co, stream);
-    case 4:
-      return launch_wgmma<true, WgSmall, EPI_UP>(x, wpk, y, style, sigma, bias, noise, N, H, W,
-                                                 Cin, 4 * Co, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_class(cls, [&](auto c) {
+    return launch_wgmma<EPI_UP, decltype(c)>(x, N, H, W, Cin, 4 * Co, stream,
+                                             static_cast<BfIn>(wpk), static_cast<BfOut>(y), style,
+                                             sigma, bias, noise);
+  });
 }
 
 }  // namespace tf

@@ -28,7 +28,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # as int). ``load`` declares them once, so the wrappers call them directly.
 SIGNATURES = {
     "styled_conv": {"tf_styled_conv_fwd": [_P] * 7 + [_I] * 7 + [_P],
-                    "tf_styled_conv_up_fwd": [_P] * 7 + [_I] * 6 + [_P]},
+                    "tf_styled_conv_up_fwd": [_P] * 7 + [_I] * 6 + [_P],
+                    "tf_styled_conv_bwd": [_P] * 9 + [_I] * 7 + [_P],
+                    "tf_styled_conv_dgrad": [_P] * 6 + [_I] * 6 + [_P]},
     "conv3x3": {"tf_conv3x3_fwd": [_P] * 3 + [_I] * 6 + [_P],
                 "tf_conv3x3_wgrad": [_P] * 4 + [_I] * 6 + [_P]},
     "pgd_update": {"tf_pgd_update": [_P] * 4 + [ctypes.c_longlong, _I] + [_F] * 4 + [_P]},

@@ -118,10 +118,14 @@ class MmaClass:
         out = 4 * self.wgs * 16 * (self.bn * 2 + 16)
         return 1024 + self.stages * stage + resident + out + (2 * self.stages + 1) * 8
 
+    def tiles(self, n: int, h: int, w: int) -> int:
+        """The M tiles of an (n, h, w) output plane."""
+        return n * -(-h // self.th) * -(-w // self.tw)
+
     def blocks(self, n: int, h: int, w: int, cout: int) -> int:
         """Tiles times Cout slices: the blocks a launch would need to give
         every tile its own block."""
-        return n * -(-h // self.th) * -(-w // self.tw) * (cout // self.bn)
+        return self.tiles(n, h, w) * (cout // self.bn)
 
 
 #          name       code TH  TW wgs team MT  BN   CK stages resident blocks/SM

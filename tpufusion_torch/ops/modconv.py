@@ -114,6 +114,14 @@ def depth_to_space(y4: torch.Tensor) -> torch.Tensor:
     return y4.reshape(n, h, w, 2, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, c)
 
 
+def space_to_depth(y: torch.Tensor) -> torch.Tensor:
+    """(N, 2H, 2W, C) -> (N, H, W, 4 C) phase-major: ``depth_to_space``'s
+    inverse."""
+    n, h2, w2, c = y.shape
+    h, w = h2 // 2, w2 // 2
+    return y.reshape(n, h, 2, w, 2, c).permute(0, 1, 3, 2, 4, 5).reshape(n, h, w, 4 * c)
+
+
 def up_conv_folded(xs: torch.Tensor, w: torch.Tensor, blur_taps=(1, 3, 3, 1)) -> torch.Tensor:
     """The up conv of the modulated input ``xs`` (N, H, W, Cin) by the
     scaled float32 weights ``w`` (k, k, Cin, Cout), folded: one "same" conv

@@ -17,9 +17,20 @@ The kernel is the CUDA implementation of the PyTorch operator
 ``tpufusion::styled_conv`` (``torch.library.custom_op``), whose CPU
 implementation is the composite and whose fake implementation gives the
 output's shape, so that ``torch.export`` traces the synthesis to one node
-(``io/export.py``). Its backward is autograd of the composite
-``styled_conv_reference``, recomputed, as ``_fsc_bwd`` does in JAX. Inside
-that recompute the 32/64-channel convs go through ``ops/conv3x3.py``.
+(``io/export.py``).
+
+The backward of both styled operators is analytic where
+``backward_takes_kernels`` says so (CUDA, bf16, the kernels' shapes, and a
+gradient of x or the style only: every attack freezes the generator): two
+kernels on the same wgmma body, K1 (the forward's conv again, whose
+epilogue turns g = dL/dy into gc = dL/dc and sums dL/dsigma) and K2 (the
+input grad of the conv with the style's epilogue), then a fixed-order sum
+of their partials (``styled_conv_backward_launcher``; the math and the
+design in ``csrc/styled_conv.cu``). ``styled_conv_backward_plain`` is its
+plain twin. Every other backward (float32, the CPU, shapes K2 does not
+take, gradients of the weights, bias or noise) is autograd of the
+composite ``styled_conv_reference``, recomputed, as ``_fsc_bwd`` does in
+JAX; on the card each such call counts ``styled_conv_bwd_composite``.
 
 The TPU dispatcher's even-H/W and H >= 16 limits were artefacts of its row
 tiling; this kernel takes every 3x3 styled conv with Cin % 16 == 0,
@@ -36,7 +47,8 @@ weight), bias, the noise of each output pixel and the activation, and
 stores each phase channel at its depth-to-space place: x read once, y
 written once. Other shapes, per-sample noise and the CPU run the composite
 ``styled_conv_up_reference`` (bf16: folded; float32: the unfolded chain,
-``ops/modconv.py``); the backward is autograd of that composite, recomputed.
+``ops/modconv.py``); its backward is the same two kernels on the phase
+weights, or autograd of that composite, recomputed.
 """
 
 from __future__ import annotations
@@ -48,7 +60,13 @@ import torch.nn.functional as F
 
 from tpufusion_torch.core import trace
 from tpufusion_torch.ops import _lib, conv3x3
-from tpufusion_torch.ops.modconv import fold_up_weight, modulated_conv2d, modulated_conv2d_up_plain
+from tpufusion_torch.ops.modconv import (
+    depth_to_space,
+    fold_up_weight,
+    modulated_conv2d,
+    modulated_conv2d_up_plain,
+    space_to_depth,
+)
 
 SQRT2 = math.sqrt(2.0)
 
@@ -117,10 +135,22 @@ def _check_cuda(what, x, **others):
             raise ValueError(f"{what}: {name} is on {t.device}, x on {x.device}")
 
 
+def _noise_plane(noise, noise_strength, h, w, up):
+    """The pre-scaled noise the kernels read: (H, W) of x's plane, or for
+    the up conv (noise (1, 2H, 2W, 1)) (H, W, 4), each input pixel's four
+    output pixels, phase 2 a + b at (2 i + a, 2 j + b)."""
+    if not up:
+        return (noise_strength.float() * noise.reshape(h, w).float()).contiguous()
+    noise4 = (noise_strength.float() * noise.reshape(h, 2, w, 2).float()).permute(0, 2, 1, 3)
+    return noise4.contiguous()
+
+
 def _scaled_weights_and_sigma(weight, style):
-    """The equalised-lr weights in float32 and sigma (N, Cout) of them."""
+    """The equalised-lr weights in float32, their squares summed over the
+    taps (Cin, Cout) and sigma (N, Cout) of them."""
     ws = weight.float() * (1.0 / math.sqrt(9 * weight.shape[2]))
-    return ws, torch.rsqrt(style.float().square() @ ws.square().sum(dim=(0, 1)) + 1e-8)
+    w2 = ws.square().sum(dim=(0, 1))
+    return ws, w2, torch.rsqrt(style.float().square() @ w2 + 1e-8)
 
 
 def styled_conv_launcher(x, weight, style, noise, noise_strength, bias):
@@ -139,8 +169,8 @@ def styled_conv_launcher(x, weight, style, noise, noise_strength, bias):
     fn = _lib.load("styled_conv").tf_styled_conv_fwd
     # few device ops here: at the 4^2-32^2 planes the host's time per op,
     # not the kernel, sets the call's time
-    ws, sigma = _scaled_weights_and_sigma(weight, style)
-    noise2d = (noise_strength.float() * noise.reshape(h, w).float()).contiguous()
+    ws, _, sigma = _scaled_weights_and_sigma(weight, style)
+    noise2d = _noise_plane(noise, noise_strength, h, w, up=False)
     # float32 style (the bf16 kernel rounds it to bf16) and bias
     s32, b = style.float().contiguous(), bias.float().contiguous()
     cls = 0
@@ -198,22 +228,41 @@ def _setup_context(ctx, inputs, output):
     ctx.save_for_backward(*inputs)
 
 
-def _recomputed_backward(reference):
-    """An operator's backward: autograd of its composite ``reference``,
-    recomputed from the saved inputs (JAX's ``_fsc_bwd``)."""
+def _recomputed_backward(reference, ctx, g):
+    """Autograd of the composite ``reference``, recomputed from the saved
+    inputs (JAX's ``_fsc_bwd``): the backward wherever the kernels do not
+    take it."""
+    need = ctx.needs_input_grad
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(nd) for t, nd in zip(ctx.saved_tensors, need)]
+        y = reference(*inputs)
+        wrt = [t for t, nd in zip(inputs, need) if nd]
+        grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
+    return tuple(next(grads) if nd else None for nd in need)
+
+
+def _backward(up):
+    """An operator's backward: the two kernels where
+    ``backward_takes_kernels`` says so, else the recomputed composite."""
+    reference = styled_conv_up_reference if up else styled_conv_reference
+
     def backward(ctx, g):
+        x, weight, style, noise, noise_strength, bias = ctx.saved_tensors
         need = ctx.needs_input_grad
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(nd) for t, nd in zip(ctx.saved_tensors, need)]
-            y = reference(*inputs)
-            wrt = [t for t, nd in zip(inputs, need) if nd]
-            grads = iter(torch.autograd.grad(y, wrt, g) if wrt else ())
-        return tuple(next(grads) if nd else None for nd in need)
+        if not backward_takes_kernels(need, x.device.type, x.dtype, x.shape, weight.shape,
+                                      noise.shape, up):
+            if x.is_cuda:
+                trace.count("styled_conv_bwd_composite")
+            return _recomputed_backward(reference, ctx, g)
+        gx, gs = styled_conv_backward_launcher(x.contiguous(), weight, style, noise,
+                                               noise_strength, bias, g.contiguous(), up=up,
+                                               need_x=need[0])()
+        trace.count("styled_conv_up_bwd" if up else "styled_conv_bwd")
+        return gx, None, gs.to(style.dtype) if need[2] else None, None, None, None
     return backward
 
 
-styled_conv_op.register_autograd(_recomputed_backward(styled_conv_reference),
-                                 setup_context=_setup_context)
+styled_conv_op.register_autograd(_backward(False), setup_context=_setup_context)
 
 
 def styled_conv(x, weight, style, noise, noise_strength, bias):
@@ -273,10 +322,9 @@ def styled_conv_up_launcher(x, weight, style, noise, noise_strength, bias):
     n, h, w, cin = x.shape
     cout = weight.shape[3]
     fn = _lib.load("styled_conv").tf_styled_conv_up_fwd
-    ws, sigma = _scaled_weights_and_sigma(weight, style)
+    ws, _, sigma = _scaled_weights_and_sigma(weight, style)
     w4, _ = fold_up_weight(ws, UP_TAPS)
-    noise4 = (noise_strength.float() * noise.reshape(h, 2, w, 2).float()).permute(0, 2, 1, 3)
-    noise4 = noise4.contiguous()
+    noise4 = _noise_plane(noise, noise_strength, h, w, up=True)
     x, s32, b = (_lib.aligned16(t) for t in (x, style.float().contiguous(),
                                              bias.float().contiguous()))
     picked = conv3x3.mma_class(n, h, w, cin, 4 * cout)
@@ -319,8 +367,7 @@ def _styled_conv_up_fake(x, weight, style, noise, noise_strength, bias):
     return x.new_empty((n, 2 * h, 2 * w, weight.shape[3]))
 
 
-styled_conv_up_op.register_autograd(_recomputed_backward(styled_conv_up_reference),
-                                    setup_context=_setup_context)
+styled_conv_up_op.register_autograd(_backward(True), setup_context=_setup_context)
 
 
 def styled_conv_up(x, weight, style, noise, noise_strength, bias):
@@ -334,3 +381,132 @@ def styled_conv_up(x, weight, style, noise, noise_strength, bias):
     if x.device.type not in ("cpu", "cuda"):
         return styled_conv_up_kernel(x.contiguous(), weight, style, noise, noise_strength, bias)
     return styled_conv_up_op(x, weight, style, noise, noise_strength, bias)
+
+
+# ---- the backward of both styled convs ---------------------------------------
+def styled_conv_backward_plain(x, weight, style, noise, noise_strength, bias, g, *, up=False,
+                               positive=None):
+    """The analytic backward of the styled conv (``up``: of the folded up
+    conv) in plain PyTorch, with the kernels' rounding points: what K1 and
+    K2 compute, the twin they are held against. With c = conv(x s, W) (up:
+    the phase conv, depth-to-space), sigma = rsqrt(s^2 W2 + 1e-8), W2 the
+    squared weights summed over the taps, z = c sigma + bias + ns noise and
+    y = sqrt2 lrelu(z, 0.2):
+
+        gz = g sqrt2 (z > 0 ? 1 : 0.2),  gc = gz sigma,  gsigma = sum_hw gz c,
+        gxs = dgrad(gc, W),  gx = gxs s,
+        gs = sum_hw gxs x - s (W2 . (sigma^3 gsigma)).
+
+    ``positive``, where given, takes the place of z > 0: the forward
+    kernel's y > 0, so that at the kink the twin follows the kernels' own
+    float32 z (K1 re-runs the forward's conv and epilogue arithmetic)
+    rather than its own, summed in another order.
+
+    Returns (gx in x's dtype, gs in the style's). The sums run in float32
+    (float64 for float64 inputs); x s, the weights and gc are rounded to
+    x's dtype, as the kernels round them."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    ws, w2, sigma = _scaled_weights_and_sigma(weight, style)
+    wk = fold_up_weight(ws, UP_TAPS)[0] if up else ws
+    wk = wk.to(x.dtype).to(f)
+    s = style.to(x.dtype)
+    c = conv3x3.conv3x3_plain((x * s[:, None, None, :]).to(f), wk)
+    if up:
+        c = depth_to_space(c)
+    sig = sigma.to(f)[:, None, None, :]
+    if positive is None:
+        positive = c * sig + bias.to(f) + noise_strength.to(f) * noise.to(f) > 0
+    gz = g.to(f) * torch.where(positive, SQRT2, 0.2 * SQRT2)
+    gsig = (gz * c).sum(dim=(1, 2))
+    gc = (gz * sig).to(x.dtype).to(f)
+    if up:
+        gc = space_to_depth(gc)
+    gxs = conv3x3.conv3x3_plain(gc, wk.flip(0, 1).transpose(2, 3))
+    gx = (gxs * s.to(f)[:, None, None, :]).to(x.dtype)
+    gs = (gxs * x.to(f)).sum(dim=(1, 2)) - style.to(f) * ((sigma.to(f) ** 3 * gsig) @ w2.to(f).t())
+    return gx, gs.to(style.dtype)
+
+
+def backward_takes_kernels(need, device_type, dtype, x_shape, w_shape, noise_shape, up) -> bool:
+    """Whether a styled operator's backward runs the two kernels (else the
+    recomputed composite): tensors on the card in bf16, the forward
+    kernel's shapes (``supported`` / ``up_supported``), K2's (its output
+    channels are the forward's Cin: Cin % 32 == 0), and no gradient asked
+    of the weights, the noise, its strength or the bias. ``need`` is
+    ``ctx.needs_input_grad`` of (x, weight, style, noise, noise_strength,
+    bias)."""
+    if device_type != "cuda" or dtype != torch.bfloat16 or any(need[i] for i in (1, 3, 4, 5)):
+        return False
+    fwd = (up_supported(x_shape, w_shape, noise_shape, dtype) if up
+           else supported(x_shape, w_shape, noise_shape))
+    return fwd and x_shape[-1] % 32 == 0
+
+
+def styled_conv_backward_launcher(x, weight, style, noise, noise_strength, bias, g, *, up,
+                                  need_x=True):
+    """Check the inputs, prepare what the backward's two kernels read and
+    return their launch (``launch() -> (gx, gs)``: gx (N, H, W, Cin) in
+    x's dtype, None where ``need_x`` is false; gs (N, Cin) float32). The
+    preparation: the scaled weights (up: folded into the phase weights, Cg
+    = 4 Cout channels; else Cg = Cout) packed for K1's tile class
+    (``conv3x3.mma_class(n, h, w, Cin, Cg)``), the same flipped and
+    channel-transposed packed for K2's (``mma_class(n, h, w, Cg, Cin)``),
+    sigma, W2 and the pre-scaled noise. After the kernels, a fixed-order sum
+    of their per-tile partials (``torch.sum`` over a fixed shape, no
+    atomics) gives dL/dsigma and sum_hw gxs x, and gs = that sum - s (W2 .
+    (sigma^3 dL/dsigma)). Every check runs before the library is built or
+    loaded; ``styled_conv_backward_kernel`` calls the launch once."""
+    what = "styled_conv_up backward" if up else "styled_conv backward"
+    ok = x.dim() == 4 and backward_takes_kernels((need_x, False, True, False, False, False),
+                                                 "cuda", x.dtype, x.shape, weight.shape,
+                                                 noise.shape, up)
+    if ok:
+        n, h, w, _ = x.shape
+        want = (n, 2 * h, 2 * w, weight.shape[3]) if up else (n, h, w, weight.shape[3])
+        if tuple(g.shape) != want or g.dtype != x.dtype or not g.is_contiguous():
+            raise ValueError(f"{what}: g {tuple(g.shape)} {g.dtype} must be a contiguous "
+                             f"{want} {x.dtype}")
+    _check(what, ok, x, weight, style, noise, noise_strength, bias)
+    _check_cuda(what, x, g=g)
+    n, h, w, cin = x.shape
+    cout = weight.shape[3]
+    lib = _lib.load("styled_conv")
+    ws, w2, sigma = _scaled_weights_and_sigma(weight, style)
+    wk = fold_up_weight(ws, UP_TAPS)[0] if up else ws
+    noise_k = _noise_plane(noise, noise_strength, h, w, up)
+    cg = wk.shape[3]
+    k1, k2 = conv3x3.mma_class(n, h, w, cin, cg), conv3x3.mma_class(n, h, w, cg, cin)
+    packed1 = conv3x3.pack_mma_weights(wk, k1, x.dtype)
+    packed2 = conv3x3.pack_mma_weights(wk.flip(0, 1).transpose(2, 3), k2, x.dtype)
+    x, g, s32, b = (_lib.aligned16(t) for t in (x, g, style.float().contiguous(),
+                                                bias.float().contiguous()))
+    sigma = sigma.contiguous()
+    bufs = (x, g, s32, b, sigma, noise_k, packed1, packed2)
+    x_p, g_p, s_p, b_p, sig_p, nz_p, pk1_p, pk2_p = (t.data_ptr() for t in bufs)
+    rows1 = k1.tiles(n, h, w) * 4 * k1.team_wgs  # a partial row a consumer warp a tile
+    rows2 = k2.tiles(n, h, w) * 4 * k2.team_wgs
+
+    def launch():
+        gc = torch.empty((n, h, w, cg), dtype=x.dtype, device=x.device)
+        p1 = torch.empty((rows1, cg), dtype=torch.float32, device=x.device)
+        _lib.launch(lib.tf_styled_conv_bwd, x, what, x_p, pk1_p, g_p, gc.data_ptr(), s_p, sig_p,
+                    b_p, nz_p, p1.data_ptr(), n, h, w, cin, cout, int(up), k1.code)
+        gx = torch.empty_like(x) if need_x else None
+        p2 = torch.empty((rows2, cin), dtype=torch.float32, device=x.device)
+        _lib.launch(lib.tf_styled_conv_dgrad, x, what, gc.data_ptr(), pk2_p, x_p,
+                    None if gx is None else gx.data_ptr(), s_p, p2.data_ptr(), n, h, w, cg, cin,
+                    k2.code)
+        gsig = p1.view(n, -1, cg).sum(dim=1)
+        if up:
+            gsig = gsig.view(n, 4, cout).sum(dim=1)
+        gs = p2.view(n, -1, cin).sum(dim=1) - s32 * ((sigma ** 3 * gsig) @ w2.t())
+        return gx, gs
+    launch.buffers = bufs
+    return launch
+
+
+def styled_conv_backward_kernel(x, weight, style, noise, noise_strength, bias, g, *, up=False,
+                                need_x=True):
+    """Launch the backward's two kernels once (``styled_conv_backward_launcher``)."""
+    return styled_conv_backward_launcher(x, weight, style, noise, noise_strength, bias, g, up=up,
+                                         need_x=need_x)()
